@@ -1,0 +1,56 @@
+"""Carry the JAX package's objects, once converted to numpy, into the
+port's types.  Used to run a JAX module and its counterpart on identical
+inputs; imports numpy and torch only (``np.asarray`` accepts JAX arrays).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .accel.fused import FusedTris
+from .render.lightdistrib import LightDistribution
+from .scene.build import SceneTables
+from .scene.textures import TextureTable
+
+
+def scene_tables(scene, device="cpu") -> SceneTables:
+    """A JAX-package SceneTables -> the port's SceneTables on `device`."""
+    tex = TextureTable(*[x if isinstance(x, (bool, tuple, type(None)))
+                         else np.asarray(x) for x in scene.textures])
+    fields = {f: np.asarray(getattr(scene, f)) for f in SceneTables._fields
+              if f != "textures"}
+    return SceneTables(textures=tex, **fields).to_device(device)
+
+
+def fused_tris(ft, device="cpu") -> FusedTris:
+    """A JAX-package FusedTris -> the port's FusedTris on `device`."""
+    return FusedTris(
+        edge_table=np.asarray(ft.edge_table),
+        plane_table=np.asarray(ft.plane_table),
+        tile_bounds=np.asarray(ft.tile_bounds),
+        perm=None if ft.perm is None else np.asarray(ft.perm),
+        n_tris=int(ft.n_tris)).to_device(device)
+
+
+def light_distribution(dist, device="cpu") -> LightDistribution:
+    """A JAX-package LightDistribution -> the port's on `device`."""
+    return LightDistribution(
+        cdf=torch.tensor(np.asarray(dist.cdf), device=device),
+        pmf=torch.tensor(np.asarray(dist.pmf), device=device),
+        grid_res=None if dist.grid_res is None else tuple(dist.grid_res),
+        world_lo=torch.tensor(np.asarray(dist.world_lo), device=device),
+        world_inv_extent=torch.tensor(np.asarray(dist.world_inv_extent),
+                                         device=device))
+
+
+def albedo_luts(luts, device="cpu"):
+    """(lut_d, lut_rest) -> tensors on `device` (None stays None)."""
+    if luts is None:
+        return None
+    return tuple(torch.tensor(np.asarray(x), device=device) for x in luts)
+
+
+def moment_states(states: dict, device="cpu") -> dict:
+    """{type: {n, mean, m2, m3, film_mean, ...}} -> tensors on `device`."""
+    return {t: {k: torch.as_tensor(np.array(v), device=device)
+                for k, v in st.items()} for t, st in states.items()}

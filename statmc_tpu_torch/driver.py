@@ -1,0 +1,489 @@
+"""Iterative render -> denoise driver (port of statmc_tpu/driver.py).
+
+Per iteration: render a growing sample batch with the path-regeneration
+wavefront, merge the per-pixel statistics, denoise every DenoiseGroup
+buffer and feed the denoised per-bounce means and MIS win rates back
+into the next iteration's ACRR/SMIS decisions
+(src/statistics/statpath.cpp:172-440).  Film and moments stay on the
+chosen device throughout; the moment states are updated in place, block
+by block.
+
+Entry point: ``load(path, device=...).render(iterations=...)``.
+"""
+from __future__ import annotations
+
+import os
+import re
+import time
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from .accel.fused import FUSED_MAX_TRIS, FusedTris
+from .core import rng as crng
+from .core import spectrum as spec
+from .denoise.filter import StatDenoiser
+from .io.pfm import write_pfm
+from .io.progress import ProgressReporter
+from .render import camera as CAM
+from .render.albedo_lut import precompute_material_curves
+from .render.integrator import IntegratorConfig, trace_wavefront
+from .render.lightdistrib import make_distribution
+from .scene.api import SceneDescription, parse_scene
+from .scene.build import SceneTables, build_scene
+from .stats import estimator as E
+from .stats import moments
+
+# Pixels per trace_wavefront call.  Lanes are independent, so the block
+# size changes memory use and launch counts, never results.
+PIXEL_BLOCK = 1 << 20
+
+# Port queue items in ROADMAP.md that the NotImplementedError gates name.
+_ITEM_LD = "LD samplers"
+_ITEM_TEX = "Textures"
+_ITEM_TWOLEVEL = "Two-level path (> 16,384 triangles, kernels B3 and B4)"
+_ITEM_REST = "Rest of slice 4"
+
+
+@dataclass
+class RenderSetup:
+    scene: SceneTables  # tensors on `device`
+    bvh: Any  # FusedTris (tensors) or None for a scene without triangles
+    dist: Any  # LightDistribution
+    cam: CAM.CameraParams
+    icfg: IntegratorConfig
+    ecfg: E.EstimatorConfig
+    width: int
+    height: int
+    filename: str
+    device: torch.device
+    base_seed: int = 0
+    pixel_mask: Any = None  # [P] bool crop (integrator pixelbounds)
+    albedo_luts: Any = None  # (lut_d [M,K,3], lut_rest [M,K,3]) or None
+
+
+def _unported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to statmc_tpu_torch yet "
+        f"(ROADMAP.md, port queue: '{item}')")
+
+
+def _check_supported(desc: SceneDescription) -> None:
+    """Refuse every scene feature the port does not render yet, so it
+    never silently renders something else."""
+    if desc.integrator_name in ("bdpt", "mlt", "sppm", "ao"):
+        raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_REST)
+    if desc.integrator_name == "volpath" and desc.named_media:
+        raise _unported("participating media (volpath)", _ITEM_REST)
+    if desc.sampler_name != "random":
+        raise _unported(f'Sampler "{desc.sampler_name}"', _ITEM_LD)
+    if getattr(desc, "accelerator_name", "bvh") == "kdtree":
+        raise _unported('Accelerator "kdtree"', _ITEM_REST)
+    if desc.camera_name == "realistic":
+        raise _unported('Camera "realistic"', _ITEM_REST)
+    for sd in desc.shapes:
+        if sd.shape_type not in ("trianglemesh", "plymesh", "sphere"):
+            raise _unported(f'Shape "{sd.shape_type}" (tessellated shapes '
+                            "and hair curves)", _ITEM_REST)
+    mats = [sd.material for sd in desc.shapes] + list(
+        desc.named_materials.values())
+    for md in mats:
+        if md is not None and md.mat_type in ("hair", "fourier",
+                                              "kdsubsurface", "subsurface"):
+            raise _unported(f'Material "{md.mat_type}"', _ITEM_REST)
+    for ld in desc.lights:
+        if ld.light_type in ("goniometric", "projection"):
+            raise _unported(f'LightSource "{ld.light_type}"', _ITEM_REST)
+        if ld.light_type == "infinite" and ld.params.find_one("mapname"):
+            raise _unported("environment-map infinite lights", _ITEM_TEX)
+
+
+def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
+    """Reorder the triangle tables into Morton order (copied from
+    statmc_tpu/driver.py:59): the fused packer's internal order becomes
+    the identity, so hit ids need no remap; area-triangle lights follow
+    their triangles through the inverse permutation."""
+    from .accel.fused import _morton
+
+    T = scene_np.tri_p0.shape[0]
+    if T == 0:
+        return scene_np
+    lo = np.minimum(np.minimum(scene_np.tri_p0,
+                               scene_np.tri_p0 + scene_np.tri_e1),
+                    scene_np.tri_p0 + scene_np.tri_e2)
+    hi = np.maximum(np.maximum(scene_np.tri_p0,
+                               scene_np.tri_p0 + scene_np.tri_e1),
+                    scene_np.tri_p0 + scene_np.tri_e2)
+    order = np.argsort(_morton(0.5 * (lo + hi)), kind="stable")
+    if np.array_equal(order, np.arange(T)):
+        return scene_np
+    inv = np.empty(T, np.int64)
+    inv[order] = np.arange(T)
+    fields = {}
+    for name in ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1",
+                 "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat",
+                 "tri_light", "tri_has_normals"):
+        fields[name] = np.asarray(getattr(scene_np, name))[order]
+    lp = np.asarray(scene_np.light_prim).copy()
+    if lp.size:
+        is_tri = np.asarray(scene_np.light_kind) == 0  # LIGHT_AREA_TRI
+        lp[is_tri] = inv[lp[is_tri]]
+        fields["light_prim"] = lp
+    return scene_np._replace(**fields)
+
+
+def prepare(desc: SceneDescription, base_seed: int = 0, device="cpu",
+            strict_assets: bool | None = None) -> RenderSetup:
+    device = torch.device(device)
+    _check_supported(desc)
+    scene_np = _morton_order_scene(build_scene(desc, strict=strict_assets))
+    n_tris = scene_np.tri_p0.shape[0]
+    if n_tris > FUSED_MAX_TRIS:
+        raise _unported(f"a scene of {n_tris} triangles", _ITEM_TWOLEVEL)
+    if np.any(scene_np.mat_kd_tex >= 0):
+        raise _unported("textured materials", _ITEM_TEX)
+    width = int(desc.film_params.find_one("xresolution", 640))
+    height = int(desc.film_params.find_one("yresolution", 480))
+    filename = str(desc.film_params.find_one("filename", "out.pfm"))
+    direct_only = desc.integrator_name in ("directlighting", "whitted")
+
+    pixel_samples = int(desc.sampler_params.find_one("pixelsamples", 16))
+    ecfg = E.derive_config(desc.integrator_params, desc.extra_params,
+                           pixel_samples)
+
+    sw = desc.camera_params.find_floats("screenwindow")
+    if desc.camera_name == "orthographic":
+        cam = CAM.make_orthographic(desc.camera_to_world, width, height, sw,
+                                    device=device)
+    elif desc.camera_name == "environment":
+        cam = CAM.make_environment(desc.camera_to_world, width, height,
+                                   device=device)
+    else:
+        fov = float(desc.camera_params.find_one("fov", 90.0))
+        cam = CAM.make_perspective(desc.camera_to_world, fov, width, height,
+                                   sw, device=device)
+
+    # Ray-cone constants from two adjacent probe rays, scaled by the
+    # reference's 1/sqrt(spp) differential factor (statpath.cpp:301-303).
+    c = width * height // 2 + width // 2
+    probe = torch.tensor([[c % width + 0.5, c // width + 0.5],
+                          [c % width + 1.5, c // width + 0.5]],
+                         dtype=torch.float32, device=device)
+    o_pr, d_pr = (x.cpu().numpy() for x in CAM.generate_rays(cam, probe))
+    diff_scale = 1.0 / np.sqrt(max(pixel_samples, 1))
+    cone0 = float(np.linalg.norm(o_pr[1] - o_pr[0])) * diff_scale
+    cone_spread = float(np.arccos(np.clip(np.dot(d_pr[0], d_pr[1]),
+                                          -1.0, 1.0))) * diff_scale
+
+    rad = ecfg.configs[E.RADIANCE]
+    has_null = bool(np.any(scene_np.mat_type == 0))  # MAT_NONE
+    icfg = IntegratorConfig(
+        max_depth=ecfg.max_depth,
+        n_ls=max(rad.bounce_end, 1),
+        nb_mis=(ecfg.configs[E.MIS_BSDF_WIN_RATE].bounce_end
+                if ecfg.enable_smis else 0),
+        enable_smis=ecfg.enable_smis,
+        enable_acrr=ecfg.enable_acrr,
+        rr_threshold=ecfg.rr_threshold,
+        cone0=cone0,
+        cone_spread=cone_spread,
+        direct_only=direct_only,
+        null_extra=8 if has_null else 0,
+    )
+
+    pb = desc.integrator_params.find_ints("pixelbounds")
+    pixel_mask = None
+    if pb is not None and len(pb) == 4:
+        xs = np.arange(width * height) % width
+        ys = np.arange(width * height) // width
+        pixel_mask = torch.as_tensor(
+            (xs >= pb[0]) & (xs < pb[1]) & (ys >= pb[2]) & (ys < pb[3]),
+            device=device)
+
+    bvh = (FusedTris.from_tris(scene_np.tri_p0, scene_np.tri_e1,
+                               scene_np.tri_e2).to_device(device)
+           if n_tris > 0 else None)
+    dist = make_distribution(scene_np, ecfg.light_strategy, device=device)
+    scene = scene_np.to_device(device)
+    albedo_luts = (precompute_material_curves(scene)
+                   if ecfg.configs[E.STAT_ALBEDO].enable else None)
+    return RenderSetup(
+        scene=scene, bvh=bvh, dist=dist, cam=cam, icfg=icfg, ecfg=ecfg,
+        width=width, height=height, filename=filename, device=device,
+        base_seed=base_seed, pixel_mask=pixel_mask, albedo_luts=albedo_luts)
+
+
+def zero_stats(device) -> dict:
+    return {k: torch.zeros((), device=device)
+            for k in ("n_camera_rays", "zero_paths", "total_paths",
+                      "path_len_sum", "path_len_max")}
+
+
+def make_regen_chunk_fn(setup: RenderSetup):
+    """Path-regeneration chunk function: traces `n_samples` samples per
+    pixel, a loop over pixel blocks of trace_wavefront.  Updates the
+    moment states, film sums and counters in place; returns the new
+    ray total."""
+    icfg, ecfg = setup.icfg, setup.ecfg
+    W, P = setup.width, setup.width * setup.height
+    dev = setup.device
+
+    def chunk(states, film_sum, film_w, ray_total, stats_acc, base_key,
+              sample_start: int, avg_ls, win_b, win_l, feedback_on: bool,
+              n_samples: int):
+        for start in range(0, P, PIXEL_BLOCK):
+            end = min(start + PIXEL_BLOCK, P)
+            ids = torch.arange(start, end, dtype=torch.int32, device=dev)
+            blk = {"st": {t: {k: v[:, start:end] for k, v in st.items()}
+                          for t, st in states.items()},
+                   "rt": ray_total}
+            fs_b, fw_b = film_sum[start:end], film_w[start:end]
+            crop = (setup.pixel_mask[start:end]
+                    if setup.pixel_mask is not None else None)
+            pxy = torch.stack([(ids % W).to(torch.float32),
+                               (ids // W).to(torch.float32)], dim=-1)
+
+            def gen_ray(u_cam):
+                # Box filter, radius 0.5: each sample lands in its pixel.
+                return CAM.generate_rays(setup.cam, pxy + u_cam)
+
+            def record(out, done):
+                m = done if crop is None else (done & crop)
+                mf = m.to(torch.float32)
+                L = out.ls[:, 0, :]
+                fs_b.copy_(fs_b + L * mf[:, None])
+                fw_b.copy_(fw_b + mf)
+                blk["st"] = E.update_states(blk["st"], ecfg, out, m)
+                blk["rt"] = blk["rt"] + torch.sum(out.n_rays)
+                df = done.to(torch.float32)
+                sa = stats_acc
+                sa["n_camera_rays"] = sa["n_camera_rays"] + torch.sum(df)
+                sa["zero_paths"] = sa["zero_paths"] + torch.sum(
+                    df * (torch.sum(L, -1) == 0.0))
+                sa["total_paths"] = sa["total_paths"] + torch.sum(df)
+                sa["path_len_sum"] = sa["path_len_sum"] + torch.sum(
+                    out.path_len * df)
+                sa["path_len_max"] = torch.maximum(
+                    sa["path_len_max"], torch.max(out.path_len * df))
+
+            trace_wavefront(
+                setup.scene, setup.bvh, setup.dist, icfg, gen_ray, ids,
+                base_key, sample_start, n_samples, avg_ls[start:end],
+                win_b[start:end], win_l[start:end], feedback_on, record,
+                albedo_luts=setup.albedo_luts)
+            for t, st in blk["st"].items():
+                for k, v in st.items():
+                    states[t][k][:, start:end] = v
+            ray_total = blk["rt"]
+        return ray_total
+
+    return chunk
+
+
+class Renderer:
+    """Owns device state across the iteration loop; the analogue of
+    StatPathIntegrator::Render (statpath.cpp:118-440)."""
+
+    def __init__(self, setup: RenderSetup):
+        self.s = setup
+        self.device = setup.device
+        self.chunk_fn = make_regen_chunk_fn(setup)
+        self.denoiser = (
+            StatDenoiser(setup.ecfg, setup.width, setup.height,
+                         device=setup.device)
+            if any(c.enable and E.DENOISE_GROUP in c.groups
+                   for c in setup.ecfg.configs) else None)
+        self.max_samples_per_dispatch = 4  # samples per chunk call
+        self.progress = True  # terminal progress bar (TTY only)
+        self.P = setup.width * setup.height
+        self.reset()
+
+    def reset(self):
+        s, P, dev = self.s, self.P, self.device
+        self.states = E.make_states(s.ecfg, P, device=dev)
+        self.film_sum = torch.zeros((P, 3), device=dev)
+        self.film_w = torch.zeros((P,), device=dev)
+        self.ray_total = torch.zeros((), device=dev)
+        self.stats = zero_stats(dev)
+        NB = max(s.icfg.nb_mis, 1)
+        self.avg_ls = torch.ones((P, s.icfg.n_ls), device=dev)
+        self.win_b = torch.zeros((P, NB), device=dev)
+        self.win_l = torch.zeros((P, NB), device=dev)
+        self.derived = {}
+        self.film_f = None
+        self.base_key = crng.base_key(s.base_seed, device=dev)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def film_mean(self):
+        """Mean film image with pbrt's XYZ round trip (core/film.cpp)."""
+        rgb = self.film_sum / torch.clamp(self.film_w, min=1.0)[..., None]
+        return spec.xyz_to_rgb(spec.rgb_to_xyz(rgb))
+
+    def iteration_spp(self, i: int) -> tuple[int, int]:
+        """(sample_start, n_samples) for iteration i (1-based);
+        statpath.cpp:269-290."""
+        spp = self.s.ecfg.pixel_samples
+        if i == 1:
+            return 0, spp
+        if self.s.ecfg.exp_iterations:
+            n = spp << (i - 2)
+            return n, n
+        return (i - 1) * spp, spp
+
+    def total_spp(self, i: int) -> int:
+        spp = self.s.ecfg.pixel_samples
+        return spp << (i - 1) if self.s.ecfg.exp_iterations else i * spp
+
+    def run_iteration(self, i: int) -> dict:
+        """One render(+denoise) iteration; returns a timing dict."""
+        start, n = self.iteration_spp(i)
+        # The film restarts every iteration while the moments accumulate;
+        # per-iteration radiance stats restart too (statpath.cpp:193-216).
+        self.film_sum.zero_()
+        self.film_w.zero_()
+        if E.IT_RADIANCE in self.states:
+            for v in self.states[E.IT_RADIANCE].values():
+                v.zero_()
+        self._sync()
+        t0 = time.perf_counter()
+        prog = ProgressReporter(-(-n // self.max_samples_per_dispatch),
+                                f"Rendering it {i}", quiet=not self.progress)
+        done = 0
+        while done < n:
+            step = min(self.max_samples_per_dispatch, n - done)
+            self.ray_total = self.chunk_fn(
+                self.states, self.film_sum, self.film_w, self.ray_total,
+                self.stats, self.base_key, start + done, self.avg_ls,
+                self.win_b, self.win_l, i > 1, step)
+            done += step
+            prog.update()
+        self._sync()
+        prog.finish()
+        t_render = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        t_denoise = 0.0
+        if self.denoiser is not None:
+            self._denoise()
+            self._sync()
+            t_denoise = time.perf_counter() - t0
+        return {"iteration": i, "spp": self.total_spp(i),
+                "render_s": t_render, "denoise_s": t_denoise,
+                "rays_total": float(self.ray_total)}
+
+    def _denoise(self):
+        """Filter every DenoiseGroup buffer and refresh the ACRR/SMIS
+        feedback (estimator.cpp:427-489)."""
+        s = self.s
+        W, H = s.width, s.height
+        NL = s.icfg.n_ls
+        film = self.film_mean.reshape(H, W, 3)
+        gbufs = self.denoiser._gbuffers(self.states)
+        derived = {}
+        film_f = None
+        for c in s.ecfg.configs:
+            if not c.enable or E.DENOISE_GROUP not in c.groups:
+                continue
+            res = self.denoiser(self.states[c.type],
+                                film if c.type == E.RADIANCE else None, gbufs)
+            if c.type == E.RADIANCE and s.ecfg.denoise_image:
+                film_f = res["film_f"]
+                if c.n_channels == 3:
+                    # With denoiseFilm on, Radiance b0's film-mean-f IS
+                    # the filtered film (estimator.cpp:143-146).
+                    fmf = res["film_mean_f"].clone()
+                    fmf[0] = film_f.reshape(-1, 3)
+                    res = dict(res, film_mean_f=fmf)
+            derived[c.type] = res
+        self.derived = derived
+        self.film_f = film_f
+
+        # Feedback: denoised per-bounce mean luminance -> ACRR
+        # (statpath.cpp:306-313); win rates -> SMIS.
+        rad = s.ecfg.configs[E.RADIANCE]
+        if rad.enable and E.RADIANCE in derived:
+            fmf = derived[E.RADIANCE]["film_mean_f"]  # [NB,P,C]
+            lum = spec.luminance(fmf) if rad.n_channels == 3 else fmf[..., 0]
+            avg = torch.swapaxes(lum, 0, 1)  # [P,NB]
+            if avg.shape[1] < NL:
+                avg = torch.nn.functional.pad(avg, (0, NL - avg.shape[1]))
+            self.avg_ls = avg[:, :NL].contiguous()
+        if s.ecfg.enable_smis and E.MIS_BSDF_WIN_RATE in derived:
+            self.win_b, self.win_l = (
+                torch.swapaxes(derived[t]["film_mean_f"][..., 0], 0,
+                               1).contiguous()
+                for t in (E.MIS_BSDF_WIN_RATE, E.MIS_LIGHT_WIN_RATE))
+
+    # -- output -----------------------------------------------------------
+
+    def buffers(self) -> dict:
+        """Every named buffer as a numpy array [H,W(,C)]."""
+        s = self.s
+        W, H = s.width, s.height
+        named = {"film": self.film_mean.cpu().numpy().reshape(H, W, 3)}
+        if self.film_f is not None:
+            named["film-f"] = self.film_f.cpu().numpy().reshape(H, W, 3)
+        derived_named = {}
+        for t, res in self.derived.items():
+            derived_named[t] = {k: res[k] for k in
+                                ("mean_corr", "discriminator", "film_mean_f")
+                                if res.get(k) is not None}
+        # mean-variance buffers (ProDen group; estimator.cpp:491-569).
+        for c in s.ecfg.configs:
+            if c.enable and E.MEANVAR_GROUP in c.groups:
+                d = derived_named.setdefault(c.type, {})
+                d["film_mean_var"] = moments.mean_variance(
+                    self.states[c.type], film=True)
+        named.update(E.export_buffers(self.states, s.ecfg, W, H,
+                                      derived_named))
+        return named
+
+    def write_outputs(self, out_dir: str, iteration: int) -> list[str]:
+        """Write regex-selected buffers as <stem>-<spp>-<name>.pfm
+        (buffer.cpp:40-53 naming)."""
+        s = self.s
+        os.makedirs(out_dir, exist_ok=True)
+        stem = os.path.splitext(os.path.basename(s.filename))[0]
+        spp = self.total_spp(iteration)
+        rx = re.compile(s.ecfg.output_regex)
+        written = []
+        for name, arr in self.buffers().items():
+            if rx.fullmatch(name):
+                path = os.path.join(out_dir, f"{stem}-{spp}-{name}.pfm")
+                write_pfm(path, arr)
+                written.append(path)
+        return written
+
+    def render(self, iterations: int | None = None,
+               out_dir: str | None = None, verbose: bool = True
+               ) -> list[dict]:
+        n_it = iterations or self.s.ecfg.iterations
+        logs = []
+        for i in range(1, n_it + 1):
+            log = self.run_iteration(i)
+            if out_dir is not None:
+                t0 = time.perf_counter()
+                log["written"] = self.write_outputs(out_dir, i)
+                log["output_s"] = time.perf_counter() - t0
+            logs.append(log)
+            if verbose:
+                print(f"Iteration: {log['iteration']}\n"
+                      f"SPP: {log['spp']}\n"
+                      f"Rendering time [ns]: {int(log['render_s'] * 1e9)}\n"
+                      f"Denoise time [ns]: {int(log['denoise_s'] * 1e9)}")
+        return logs
+
+
+def load(scene_path: str, base_seed: int = 0, device="cpu",
+         strict_assets: bool | None = None) -> Renderer:
+    """Parse a pbrt scene and build its Renderer on `device`.  Scene
+    features the port does not render yet raise NotImplementedError."""
+    desc = parse_scene(scene_path)
+    return Renderer(prepare(desc, base_seed, device=device,
+                            strict_assets=strict_assets))

@@ -1,0 +1,201 @@
+"""Primitive intersection + hit assembly (port of
+statmc_tpu/render/intersect.py).
+
+Triangles go through the fused intersector (accel/fused.py, kernel B1);
+spheres are tested densely with the quadric.  Hair tangents and texture
+footprints are not ported (their scenes are refused by driver.prepare).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from ..accel.fused import FusedTris, intersect_fused
+from ..core import math as cm
+from ..scene.build import SceneTables
+
+PRIM_NONE = 0
+PRIM_TRI = 1
+PRIM_SPH = 2
+
+
+class Hit(NamedTuple):
+    """SoA hit record for a ray batch."""
+    t: Any  # [R] hit distance (t_max if miss)
+    prim_kind: Any  # [R] PRIM_*
+    prim_idx: Any  # [R]
+    p: Any  # [R,3] hit point
+    ng: Any  # [R,3] geometric normal
+    ns: Any  # [R,3] shading normal
+    uv: Any  # [R,2]
+    mat_id: Any  # [R]
+    light_id: Any  # [R] area-light id or -1
+    uv_density: Any  # [R] sqrt(uv area / world area)
+
+    @property
+    def found(self):
+        return self.prim_kind != PRIM_NONE
+
+
+def ray_spheres(o, d, center, radius, t_max):
+    """Quadratic sphere test: rays [R,3] x spheres [S] -> (t, hit) [R,S].
+
+    The dot products and the discriminant are rounded as the JAX
+    package's compiled CPU code rounds them (fused multiply-adds): near a
+    silhouette b*b - c cancels, and one rounding there moves t by far
+    more than an ulp."""
+    oc = o[:, None, :] - center[None]
+    b = cm.dot_fused(oc, d[:, None, :])
+    c = cm.fma(-radius[None], radius[None], cm.dot_fused(oc, oc))
+    disc = cm.fma(b, b, -c)
+    ok = disc >= 0.0
+    sq = cm.sqrt(torch.clamp(disc, min=0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    eps = 1e-3
+    t = torch.where(t0 > eps, t0, t1)
+    hit = ok & (t > eps) & (t < t_max[:, None])
+    return t, hit
+
+
+def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
+                  lean: bool = False) -> Hit:
+    """Gather hit attributes for the closest primitives.  lean=True skips
+    the shading-only attributes (the BSDF-MIS light probe reads only
+    found / light_id / ng / p)."""
+    R = o.shape[0]
+    dev = o.device
+    tri_idx = torch.where(kind == PRIM_TRI, idx, 0).long()
+    sph_idx = torch.where(kind == PRIM_SPH, idx, 0).long()
+    p = o + t_best[:, None] * d
+    has_tris = scene.tri_p0.shape[0] > 0
+    has_sph = scene.sph_center.shape[0] > 0
+
+    if has_tris:
+        p0, e1, e2 = (scene.tri_p0[tri_idx], scene.tri_e1[tri_idx],
+                      scene.tri_e2[tri_idx])
+        n0, n1, n2 = (scene.tri_n0[tri_idx], scene.tri_n1[tri_idx],
+                      scene.tri_n2[tri_idx])
+        hasn = scene.tri_has_normals[tri_idx]
+        light_t = scene.tri_light[tri_idx]
+        mat_t = (torch.zeros((R,), dtype=torch.int32, device=dev) if lean
+                 else scene.tri_mat[tri_idx])
+        ng_t = cm.normalize(cm.cross(e1, e2))
+        pvec = cm.cross(d, e2)
+        det = torch.sum(e1 * pvec, dim=-1)
+        inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+        tvec = o - p0
+        u = torch.sum(tvec * pvec, dim=-1) * inv_det
+        v = torch.sum(d * cm.cross(tvec, e1), dim=-1) * inv_det
+        w = 1.0 - u - v
+        ns_t = cm.normalize(w[:, None] * n0 + u[:, None] * n1
+                            + v[:, None] * n2)
+        # pbrt orients ng toward the shading normal (triangle.cpp:372).
+        ng_t = torch.where((hasn & (cm.dot(ng_t, ns_t) < 0.0))[:, None],
+                           -ng_t, ng_t)
+        ns_t = torch.where(hasn[:, None], ns_t, ng_t)
+        if lean:
+            uv_t = torch.zeros((R, 2), device=dev)
+            dens_t = torch.zeros((R,), device=dev)
+        else:
+            uv0, uv1, uv2 = (scene.tri_uv0[tri_idx], scene.tri_uv1[tri_idx],
+                             scene.tri_uv2[tri_idx])
+            uv_t = w[:, None] * uv0 + u[:, None] * uv1 + v[:, None] * uv2
+            uv_area = torch.abs((uv1 - uv0)[:, 0] * (uv2 - uv0)[:, 1]
+                                - (uv1 - uv0)[:, 1] * (uv2 - uv0)[:, 0])
+            w_area = cm.length(cm.cross(e1, e2))
+            dens_t = cm.sqrt(uv_area / torch.clamp(w_area, min=1e-12))
+    if has_sph:
+        cen = scene.sph_center[sph_idx]
+        dir_s = cm.normalize(p - cen)
+        ng_s = dir_s * scene.sph_flip[sph_idx][:, None]
+        ns_s = ng_s
+        light_s = scene.sph_light[sph_idx]
+        if lean:
+            uv_s = torch.zeros((R, 2), device=dev)
+            mat_s = torch.zeros((R,), dtype=torch.int32, device=dev)
+            dens_s = torch.zeros((R,), device=dev)
+        else:
+            phi = torch.atan2(dir_s[..., 1], dir_s[..., 0])
+            theta = torch.arccos(torch.clamp(dir_s[..., 2], -1.0, 1.0))
+            uv_s = torch.stack([phi / (2 * math.pi) + 0.5, theta / math.pi],
+                               dim=-1)
+            mat_s = scene.sph_mat[sph_idx]
+            rad = scene.sph_radius[sph_idx]
+            dens_s = 1.0 / cm.sqrt(torch.clamp(
+                4.0 * math.pi * rad * rad, min=1e-12))
+
+    if has_tris and has_sph:
+        is_t = (kind == PRIM_TRI)
+        ng = torch.where(is_t[:, None], ng_t, ng_s)
+        ns = torch.where(is_t[:, None], ns_t, ns_s)
+        uv = torch.where(is_t[:, None], uv_t, uv_s)
+        mat = torch.where(is_t, mat_t, mat_s)
+        light = torch.where(is_t, light_t, light_s)
+        dens = torch.where(is_t, dens_t, dens_s)
+    elif has_tris:
+        ng, ns, uv, mat, light, dens = ng_t, ns_t, uv_t, mat_t, light_t, dens_t
+    elif has_sph:
+        ng, ns, uv, mat, light, dens = ng_s, ns_s, uv_s, mat_s, light_s, dens_s
+    else:
+        ng = ns = torch.zeros((R, 3), device=dev)
+        uv = torch.zeros((R, 2), device=dev)
+        mat = torch.zeros((R,), dtype=torch.int32, device=dev)
+        light = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        dens = torch.zeros((R,), device=dev)
+
+    miss = kind == PRIM_NONE
+    return Hit(
+        t=t_best, prim_kind=kind, prim_idx=idx, p=p,
+        ng=torch.where(miss[:, None], 0.0, ng),
+        ns=torch.where(miss[:, None], 0.0, ns),
+        uv=uv,
+        mat_id=torch.where(miss, 0, mat),
+        light_id=torch.where(miss, -1, light),
+        uv_density=torch.where(miss, 0.0, dens),
+    )
+
+
+def _closest_sphere(scene, o, d, t_best, kind, idx):
+    t, hit = ray_spheres(o, d, scene.sph_center, scene.sph_radius, t_best)
+    t = torch.where(hit, t, cm.INF)
+    j = torch.argmin(t, dim=-1)
+    tj = torch.gather(t, 1, j[:, None])[:, 0]
+    better = tj < t_best
+    return (torch.where(better, tj, t_best),
+            torch.where(better, PRIM_SPH, kind),
+            torch.where(better, j.to(torch.int32), idx))
+
+
+def intersect_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None,
+                    lean: bool = False) -> Hit:
+    """Closest hit: dense spheres, then triangles through kernel B1.
+    bvh is None only for a scene without triangles."""
+    R = o.shape[0]
+    t_best = t_max
+    kind = torch.zeros((R,), dtype=torch.int32, device=o.device)
+    idx = torch.zeros((R,), dtype=torch.int32, device=o.device)
+    if scene.sph_center.shape[0] > 0:
+        t_best, kind, idx = _closest_sphere(scene, o, d, t_best, kind, idx)
+    if scene.tri_p0.shape[0] > 0:
+        tt, tid, found = intersect_fused(bvh, o, d, t_best)
+        better = found & (tt < t_best)
+        t_best = torch.where(better, tt, t_best)
+        kind = torch.where(better, PRIM_TRI, kind)
+        idx = torch.where(better, tid, idx)
+    return _assemble_hit(scene, o, d, t_best, kind, idx, lean=lean)
+
+
+def occluded_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None):
+    """Any-hit (shadow) test via dense spheres + kernel B1 (a full
+    closest-hit, as in the JAX package)."""
+    blocked = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    if scene.sph_center.shape[0] > 0:
+        _, hit = ray_spheres(o, d, scene.sph_center, scene.sph_radius, t_max)
+        blocked |= torch.any(hit, dim=-1)
+    if scene.tri_p0.shape[0] > 0:
+        _, _, found = intersect_fused(bvh, o, d, t_max)
+        blocked |= found
+    return blocked

@@ -1,0 +1,99 @@
+"""Streaming per-pixel moment statistics (port of
+statmc_tpu/stats/moments.py).
+
+A MomentState is a dict of tensors: ``n`` [..., 1] and ``mean``/``m2``/
+``m3``/``film_mean``/``film_m2`` [..., C].  The update expressions keep
+the JAX package's statement order (estimator.h:188-226) and its compiled
+rounding, so CPU results are bitwise equal to the jitted JAX update.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import math as cm
+
+
+def make_state(shape, channels: int, transform: bool, max_moment: int = 3,
+               device="cpu") -> dict:
+    """Zeroed moment state for `shape` pixels x `channels`."""
+    full = tuple(shape) + (channels,)
+
+    def z(s):
+        return torch.zeros(s, dtype=torch.float32, device=device)
+
+    st = {"n": z(tuple(shape) + (1,)), "mean": z(full)}
+    if max_moment >= 2:
+        st["m2"] = z(full)
+    if max_moment >= 3:
+        st["m3"] = z(full)
+    if transform:
+        st["film_mean"] = z(full)
+        st["film_m2"] = z(full)
+    return st
+
+
+def box_cox(x, lam: float = 0.5):
+    """(x^lambda - 1)/lambda (estimator.h:135-145).  lambda = 0.5 takes
+    the correctly rounded square root, as XLA lowers the power."""
+    p = cm.sqrt(x) if lam == 0.5 else torch.pow(x, lam)
+    return (p - 1.0) / lam
+
+
+def _meng_update(n, mean, m2, m3, x, w):
+    """One Meng/Pebay step; w is a [..., 1] {0,1} mask of active lanes."""
+    n_new = n + w
+    n_safe = torch.clamp(n_new, min=1.0)
+    d = x - mean
+    dn = d / n_safe
+    dn2 = dn * dn
+    mean_new = mean + w * dn
+    out = {"n": n_new, "mean": mean_new}
+    if m2 is not None:
+        m2_new = m2 + w * (d * (d - dn))
+        out["m2"] = m2_new
+        if m3 is not None:
+            # XLA contracts this line into two fused multiply-adds:
+            # -3 dn m2' + d (d^2 - dn^2) = fma(-3 dn, m2', d fma(d, d, -dn^2)).
+            out["m3"] = m3 + w * cm.fma(-3.0 * dn, m2_new,
+                                        d * cm.fma(d, d, -dn2))
+    return out
+
+
+def _mask_w(state: dict, mask):
+    if mask is None:
+        return torch.ones_like(state["n"])
+    return mask[..., None].to(state["n"].dtype)
+
+
+def update(state: dict, sample, mask=None) -> dict:
+    """AddSampleM{1,2,3}: raw sample into the stat stream."""
+    w = _mask_w(state, mask)
+    new = _meng_update(state["n"], state["mean"], state.get("m2"),
+                       state.get("m3"), sample, w)
+    # Without transform, film buffers alias the stat buffers.
+    if "film_mean" in state:
+        new["film_mean"] = new["mean"]
+        new["film_m2"] = new.get("m2", state["film_m2"])
+    return new
+
+
+def update_transform(state: dict, sample, mask=None, lam: float = 0.5
+                     ) -> dict:
+    """AddTransformSample: Box-Cox into stats, raw sample into the film
+    duals, sharing one n."""
+    w = _mask_w(state, mask)
+    new = _meng_update(state["n"], state["mean"], state.get("m2"),
+                       state.get("m3"), box_cox(sample, lam), w)
+    n_safe = torch.clamp(new["n"], min=1.0)
+    fd = sample - state["film_mean"]
+    fdn = fd / n_safe
+    new["film_mean"] = state["film_mean"] + w * fdn
+    new["film_m2"] = state["film_m2"] + w * (fd * (fd - fdn))
+    return new
+
+
+def mean_variance(state: dict, film: bool = False):
+    """Variance of the mean: M2/((n-1) n) (estimator.cpp:524-569)."""
+    n = state["n"]
+    m2 = state["film_m2"] if film and "film_m2" in state else state["m2"]
+    return m2 / torch.clamp((n - 1.0) * n, min=1.0)
