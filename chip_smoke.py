@@ -12,16 +12,38 @@ and the final line is not printed:
    staircase proxy's table and on a 16,384-triangle table, 2^20 rays;
 4. kernel B2 (statistical filter) against its plain version at 1280x720,
    radius 20, C = 3, G = 6, CF = 3, normalized and not;
-5. the main path: ``load(scene).render(iterations=2)`` on the staircase
-   proxy at 1280x720, maxdepth 8, filter radius 20, albedo + normal
-   G-buffers, 4 spp, with both kernels' launch counts read around it;
+5. the staircase main path: ``load(scene).render(iterations=2)`` on the
+   staircase proxy at 1280x720, maxdepth 8, filter radius 20, albedo +
+   normal G-buffers, 4 spp, with B1's and B2's launch counts set to 0
+   just before it and read just after;
 6. the same call on a small staircase proxy (32x24) on the card and
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
-7. one JSON line of per-kernel results, then the device line.
+7. the terrain main path (the large-scene, two-level path):
+   ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
+   proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
+   set to 0 just before it and read just after;
+8. one more terrain iteration under torch.profiler: device time by
+   kernel and by stage of the two-level intersect call (partition, slab
+   rays, B3, worklists, features, B4, unsort), and the device's busy
+   share of the unprofiled iteration;
+9. kernels B3 (subgroup cull) and B4 (worklist walk) against their plain
+   versions on the terrain's table: its 1280x720 camera rays (sorted, as
+   the main path sorts them) and 2^20 random rays grazing the terrain
+   floor (unsorted, a third each unbounded, finite and dead, so that
+   blocks overflow the worklist and walk densely), compared on 64 blocks
+   of each (the kernels are timed on all blocks and on those 64);
+10. a small terrain proxy (32x24, 19,554 triangles, still two-level) on
+    the card and on the CPU: the buffers must agree;
+11. one JSON line of per-kernel results, then the device line.
 
-Times are CUDA-event medians of 10 runs after 3 warm-ups, printed with
-the card's name and power limit.  Imports nothing of JAX.
+Kernel times are CUDA-event medians of 10 runs after 3 warm-ups; a plain
+version runs once, and its time is that one CUDA-event reading.  Each
+kernel's bound (bound_ms) is the larger of its FP32 operations over
+67 TFLOP/s and its bytes (each input read once, each output written
+once) over 3.35 TB/s, the H100 SXM's published peaks, counting the work
+these inputs need.  Every time is printed with the card's name and power
+limit.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -36,10 +58,24 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, SPP, MAXDEPTH, RADIUS = 1280, 720, 4, 8, 20
 N_RAYS = 1 << 20
+# H100 SXM peaks: FP32 outside the tensor cores, HBM3 bandwidth.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# FP32 operations per unit of work (an FMA counts two):
+# (ray, triangle): the five forms need 25 FMAs (3 edge forms of 6 terms,
+# the plane numerator of 4, the denominator of 3) + the epilogue.
+B1_OPS = 2 * 25 + 15
+B2_OPS_REJECT = 3 * 5  # (pixel, neighbour): the 3-channel acceptance test
+# An accepted pair adds its weight (spatial 3, G = 6 planes x 4), expf
+# (~8), valid and wsum (2) and the CF = 3 sums (2 each).
+B2_OPS_ACCEPT = B2_OPS_REJECT + 3 + 6 * 4 + 8 + 2 + 3 * 2
+B3_OPS = 20  # (ray, subgroup box) slab test
+B4_OPS = B1_OPS  # (ray, triangle): the same five forms and epilogue
+SUBSET = 64  # blocks of 512 rays on which B3/B4 meet their plain versions
 # The small reference render (phase 6) and the share of its pixels that
 # must agree between the card and the CPU in every buffer (0.9961 at
 # worst on an NVIDIA H100 80GB HBM3 at 700 W, with equal ray totals).
 SMALL_W, SMALL_H, SMALL_SHARE = 32, 24, 0.98
+TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
 
 
 def _card() -> str:
@@ -65,6 +101,29 @@ def _median_ms(fn, warmup: int = 3, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _once_ms(fn):
+    """(result, ms) of one call, timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the two times."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
 
 
 def _scene_text(width, height):
@@ -102,6 +161,21 @@ def _rays(rng, lo, hi):
     return o, d, t_max
 
 
+def _grazing_rays(rng, lo, hi):
+    """_rays' t_max mix on 2^20 rays that skim the terrain floor: origins
+    over the scene box at heights 0-0.2 (the heightfield spans 0-0.15),
+    nearly horizontal directions.  Each crosses many subgroup boxes of the
+    floor, so many 512-ray blocks vote for more than MAXS subtiles and
+    walk densely."""
+    import numpy as np
+
+    o, d, t_max = _rays(rng, lo, hi)
+    o[:, 1] = rng.random(N_RAYS) * 0.2
+    d *= np.array([1.0, 0.02, 1.0], np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d, t_max
+
+
 def phase_b1(rng, card):
     """Kernel B1 against its plain version on two tables."""
     import numpy as np
@@ -126,8 +200,7 @@ def phase_b1(rng, card):
         raye, rayp = (x.contiguous() for x in F.ray_features(o, d))
         args = (ft.edge_table, ft.plane_table, raye, rayp, t_max)
         t_k, id_k = F.intersect_tiles(*args)
-        t_p, id_p = F.intersect_plain(*args)
-        torch.cuda.synchronize()
+        (t_p, id_p), plain_ms = _once_ms(lambda: F.intersect_plain(*args))
         same = id_k == id_p
         frac = float(same.float().mean())
         err = float((t_k - t_p)[same].abs().max())
@@ -137,12 +210,17 @@ def phase_b1(rng, card):
             raise AssertionError(f"B1 {name}: ids equal on {frac:.6f} of "
                                  f"rays, t within rtol 1e-6: {rel_ok}")
         ms = _median_ms(lambda: F.intersect_tiles(*args))
-        plain_ms = _median_ms(lambda: F.intersect_plain(*args))
         hits = int((id_k >= 0).sum())
-        print(f"B1 {name}: {ft.n_tris} tris, {N_RAYS} rays, {hits} hits, "
-              f"ids equal {frac:.6f}, max |dt| {err:.3e}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]", flush=True)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        # Work these rays need: every live ray against every triangle.
+        live = int((t_max > 0).sum())
+        bound_ms, bound_by = _bound(live * ft.n_tris * B1_OPS,
+                                    _nbytes(*args, t_k, id_k))
+        print(f"B1 {name}: {ft.n_tris} tris, {N_RAYS} rays ({live} live), "
+              f"{hits} hits, ids equal {frac:.6f}, max |dt| {err:.3e}; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once), bound "
+              f"{bound_ms:.3f} ms ({bound_by}) [{card}]", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                         bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
@@ -170,14 +248,14 @@ def phase_b2(rng, card):
     from statmc_tpu_torch.denoise import filter_cuda as FC
 
     mc, d2, fm, gb, valid = _filter_inputs(rng)
+    pairs, accepted = _filter_pairs(mc, d2)
     gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
     ds = -0.5 / 10.0 ** 2
     out = {}
     for normalize in (True, False):
         args = (mc, d2, fm, gb, valid, RADIUS, ds, gf, normalize)
         o_k, w_k = FC.run_filter(*args)
-        o_p, w_p = FC.run_filter_plain(*args)
-        torch.cuda.synchronize()
+        (o_p, w_p), plain_ms = _once_ms(lambda: FC.run_filter_plain(*args))
         # The kernel sums the window in the plain version's order with the
         # same rounding per step; expf and the library exp may still
         # differ in the last bit, hence rtol 1e-4 / atol 1e-6.
@@ -187,12 +265,36 @@ def phase_b2(rng, card):
             raise AssertionError(f"B2: min wsum {float(w_k.min())}")
         err = float((o_k - o_p).abs().max())
         ms = _median_ms(lambda: FC.run_filter(*args))
-        plain_ms = _median_ms(lambda: FC.run_filter_plain(*args))
+        bound_ms, bound_by = _bound(
+            pairs * B2_OPS_REJECT + accepted * (B2_OPS_ACCEPT - B2_OPS_REJECT),
+            _nbytes(mc, d2, fm, gb, valid, o_k, w_k))
         print(f"B2 normalize={normalize}: {WIDTH}x{HEIGHT} r={RADIUS}, max "
-              f"|dout| {err:.3e}, min wsum {float(w_k.min()):.6f}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]", flush=True)
-        out[normalize] = dict(ms=ms, plain_ms=plain_ms, err=err)
+              f"|dout| {err:.3e}, min wsum {float(w_k.min()):.6f}; "
+              f"{pairs} in-image pairs, {accepted / pairs:.4f} accepted; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once), bound "
+              f"{bound_ms:.3f} ms ({bound_by}) [{card}]", flush=True)
+        out[normalize] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                              bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def _filter_pairs(mc, d2):
+    """(in-image (pixel, neighbour) pairs, accepted ones) of the r = RADIUS
+    window: the acceptance test decides which pairs take the weight and
+    its exponential."""
+    H, W, _ = mc.shape
+    pairs = accepted = 0
+    for dy in range(-RADIUS, RADIUS + 1):
+        for dx in range(-RADIUS, RADIUS + 1):
+            ys, yj = slice(max(0, -dy), H - max(0, dy)), slice(
+                max(0, dy), H - max(0, -dy))
+            xs, xj = slice(max(0, -dx), W - max(0, dx)), slice(
+                max(0, dx), W - max(0, -dx))
+            diff = mc[ys, xs] - mc[yj, xj]
+            ok = (diff * diff <= d2[ys, xs] + d2[yj, xj] + 1e-20).all(-1)
+            pairs += ok.numel()
+            accepted += int(ok.sum())
+    return pairs, accepted
 
 
 def phase_main_path(card):
@@ -241,19 +343,19 @@ def phase_main_path(card):
     return launches
 
 
-def phase_small_reference(card):
-    """A small staircase proxy rendered on the card and on the CPU (the
-    kernels' plain versions): equal sample counts, and buffers that agree
-    up to the paths that an ulp sends elsewhere (tests/test_torch_slice.py
+def phase_small_reference(card, name, text):
+    """A small scene rendered on the card and on the CPU (the kernels'
+    plain versions): equal sample counts, and buffers that agree up to
+    the paths that an ulp sends elsewhere (tests/test_torch_slice.py
     explains why such paths exist between any two implementations)."""
     import numpy as np
 
     from statmc_tpu_torch.driver import load
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "staircase-small.pbrt")
+        path = os.path.join(tmp, f"{name}-small.pbrt")
         with open(path, "w") as f:
-            f.write(scene_small())
+            f.write(text)
         bufs, rays = {}, {}
         for dev in ("cuda", "cpu"):
             r = load(path, device=dev)
@@ -286,7 +388,7 @@ def phase_small_reference(card):
         raise AssertionError(f"rays_total {rays['cuda']} (card) vs "
                              f"{rays['cpu']} (cpu)")
     worst = min(shares, key=shares.get)
-    print(f"small reference: {SMALL_W}x{SMALL_H} card vs cpu, {len(cpu)} "
+    print(f"small {name}: {SMALL_W}x{SMALL_H} card vs cpu, {len(cpu)} "
           f"buffers, worst {worst} {shares[worst]:.4f} of pixels within "
           f"rtol 1e-4, rays_total {rays['cuda']:.0f} vs {rays['cpu']:.0f} "
           f"[{card}]", flush=True)
@@ -297,6 +399,295 @@ def scene_small():
 
     return scene_text(width=SMALL_W, height=SMALL_H, spp=2, iterations=2,
                       maxdepth=4, denoise=True, filterradius=2)
+
+
+def terrain_small():
+    """19,554 triangles (n = 96): past FUSED_MAX_TRIS, so two-level."""
+    from statmc_tpu_torch.testscenes import terrain_scene_text
+
+    return terrain_scene_text(width=SMALL_W, height=SMALL_H, spp=2,
+                              iterations=2, maxdepth=4, n=96, denoise=True)
+
+
+def phase_terrain_main_path(card):
+    """load(terrain).render(iterations=1) on the card at bench.py's
+    terrain settings; B3's and B4's launch counts read around it.
+    Returns the renderer (its setup feeds the B3/B4 phase)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import terrain_scene_text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "terrain-proxy.pbrt")
+        with open(path, "w") as f:
+            f.write(terrain_scene_text(
+                width=WIDTH, height=HEIGHT, spp=TERRAIN_SPP, iterations=1,
+                maxdepth=TERRAIN_MAXDEPTH))
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    if not isinstance(r.s.bvh, TT.TwoLevelTris):
+        raise AssertionError(f"terrain: accelerator {type(r.s.bvh).__name__}")
+    r.progress = False
+    torch.cuda.reset_peak_memory_stats()
+    TT.cull.launches = 0
+    TT.walk.launches = 0
+    log = r.render(iterations=1, verbose=False)[-1]
+    torch.cuda.synchronize()
+    launches = {"B3": TT.cull.launches, "B4": TT.walk.launches}
+    peak = torch.cuda.max_memory_allocated()
+    film = r.film_mean.cpu().numpy()
+    if not (np.isfinite(film).all() and film.mean() > 0):
+        raise AssertionError("terrain film: not finite with mean > 0")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"terrain main path launch counts {launches}")
+    rays = log["rays_total"]
+    print(f"terrain main path: {r.s.bvh.n_tris} tris ({r.s.bvh.n_sub} "
+          f"subtiles, fsub {r.s.bvh.fsub}), {WIDTH}x{HEIGHT} spp "
+          f"{TERRAIN_SPP} maxdepth {TERRAIN_MAXDEPTH}, setup {setup_s:.1f} s, "
+          f"{rays:.0f} rays in {log['render_s']:.3f} s = "
+          f"{rays / log['render_s']:.1f} rays/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, film mean {film.mean():.5f}, launches "
+          f"{launches} [{card}]", flush=True)
+    return r, launches, log["render_s"]
+
+
+def _trace_sums(prof):
+    """Sums over a finished torch.profiler run, read from its raw events
+    (the profiler's own event tree takes minutes to build for the ~10^6
+    events of a terrain iteration): {B3, B4, other: [device ms, kernels]},
+    the kernels launched through the CUDA runtime, and per ``twolevel.*``
+    range name [calls, host ms, device ms of the kernels that the ops
+    inside it launched]."""
+    import bisect
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    groups = {"B3": [0.0, 0], "B4": [0.0, 0], "other": [0.0, 0]}
+    by_op, ops, ranges, launches = {}, [], [], 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            if e.is_user_annotation():
+                continue  # the device-side span of a range, not a kernel
+            ms = e.duration_ns() / 1e6
+            g = groups["B3" if "twolevel_cull" in name else
+                       "B4" if "twolevel_walk" in name else "other"]
+            g[0] += ms
+            g[1] += 1
+            op = e.linked_correlation_id()  # the CPU op that launched it
+            if op > 0:
+                by_op[op] = by_op.get(op, 0.0) + ms
+        elif name in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC"):
+            launches += 1
+        elif e.linked_correlation_id() == 0:  # a CPU op or a range
+            ops.append((e.start_ns(), e.correlation_id()))
+            if name.startswith("twolevel."):
+                ranges.append((e.start_ns(), e.end_ns(), name))
+    ranges.sort()
+    starts = [a for a, _, _ in ranges]
+    stages = {}
+    for a, b, name in ranges:
+        st = stages.setdefault(name, [0, 0.0, 0.0])
+        st[0] += 1
+        st[1] += (b - a) / 1e6
+    for t, op in ops:  # the ranges do not nest: bisect for the one around t
+        ms = by_op.pop(op, None) if op > 0 else None
+        k = bisect.bisect_right(starts, t) - 1
+        if ms is not None and k >= 0 and t <= ranges[k][1]:
+            stages[ranges[k][2]][2] += ms
+    return groups, launches, stages
+
+
+def phase_terrain_profile(card, r, render_s):
+    """The terrain main path's iteration once more under torch.profiler:
+    device time by kernel (B3, B4, the rest) and by stage of
+    intersect_twolevel (its ``twolevel.*`` ranges, summed over the
+    iteration's calls), and the device's busy share of the unprofiled
+    iteration (render_s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        log = r.run_iteration(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups, launches, stages = _trace_sums(prof)
+    total = sum(ms for ms, _ in groups.values())
+    print(f"terrain profile: iteration 1 again, {log['render_s']:.3f} s "
+          f"profiled, trace read in {time.perf_counter() - t0:.1f} s; "
+          f"device time {total:.1f} ms in "
+          f"{sum(n for _, n in groups.values())} kernels ({launches} "
+          f"launched through the runtime), busy {total / 1e3 / render_s:.3f}"
+          f" of the unprofiled {render_s:.3f} s; "
+          + ", ".join(f"{g} {ms:.1f} ms ({n})"
+                      for g, (ms, n) in groups.items()) + f" [{card}]",
+          flush=True)
+    # B3 and B4 launch through the kernel library's statically linked
+    # CUDA runtime, whose launches the profiler may not link to the
+    # enclosing range; the cull and walk ranges launch no other kernel,
+    # so each takes at least its kernel's time.
+    own = {"twolevel.cull": groups["B3"][0], "twolevel.walk": groups["B4"][0]}
+    dev = {k: max(v[2], own.get(k, 0.0)) for k, v in stages.items()}
+    whole = sum(dev.values())
+    calls = max((v[0] for v in stages.values()), default=0)
+    print("terrain profile, intersect_twolevel stages (device ms / host ms "
+          f"under the profiler, {calls} calls): "
+          + ", ".join(f"{k[9:]} {dev[k]:.1f} / {v[1]:.1f}"
+                      for k, v in stages.items())
+          + f"; all stages {whole:.1f} ms device, "
+          f"{whole / max(total, 1e-9):.3f} of the iteration's [{card}]",
+          flush=True)
+    if not stages or groups["B3"][1] <= 0 or groups["B4"][1] <= 0:
+        raise AssertionError("terrain profile: no two-level stages or "
+                             "kernels in the trace")
+
+
+def _cull_tests(bounds, rays):
+    """Box tests the cull needs for these rays: per (block, subgroup), the
+    live rays up to the first one that votes (the sweep stops there), or
+    all live rays when none does."""
+    import torch
+
+    from statmc_tpu_torch.accel.twolevel import slab_votes
+
+    G, RT = rays.shape[0], rays.shape[1]
+    total = 0
+    step = max(1, (1 << 25) // (RT * bounds.shape[0]))
+    for g0 in range(0, G, step):
+        r = rays[g0:g0 + step]
+        v = slab_votes(bounds, r)  # [g, RT, nf]
+        live = torch.cumsum(r[..., 6] > 0, 1)  # [g, RT]
+        first = torch.argmax(v.to(torch.uint8), 1)  # [g, nf]
+        tests = torch.where(v.any(1), torch.gather(live, 1, first),
+                            live[:, -1:])
+        total += int(tests.sum())
+    return total
+
+
+def _pick_blocks(n_eff, G):
+    """SUBSET block ids: up to a quarter from the dense-walk blocks, the
+    rest spread evenly over all blocks."""
+    import torch
+
+    from statmc_tpu_torch.accel.twolevel import MAXS
+
+    dense = torch.nonzero(n_eff > MAXS)[:, 0]
+    take = dense[torch.linspace(0, len(dense) - 1, min(len(dense),
+                                                       SUBSET // 4),
+                                device=dense.device).long()] if len(
+        dense) else dense
+    rest = torch.linspace(0, G - 1, SUBSET - len(take),
+                          device=n_eff.device).long()
+    return torch.unique(torch.cat([take, rest]))
+
+
+def phase_b3_b4(rng, card, setup):
+    """Kernels B3 and B4 against their plain versions on the terrain
+    table, with the camera rays and random rays grazing the floor."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+    from statmc_tpu_torch.render import camera as CAM
+
+    tl = setup.bvh
+    dev = tl.table.device
+    P = WIDTH * HEIGHT
+    ids = torch.arange(P, device=dev)
+    pxy = torch.stack([(ids % WIDTH).float() + 0.5,
+                       (ids // WIDTH).float() + 0.5], -1)
+    o_c, d_c = CAM.generate_rays(setup.cam, pxy)
+    lo = tl.world_lo.cpu().numpy()
+    hi = lo + tl.world_ext.cpu().numpy()
+    o_r, d_r, tm_r = (torch.as_tensor(x, device=dev)
+                      for x in _grazing_rays(rng, lo, hi))
+    sets = {"camera": (o_c, d_c, torch.full((P,), 1e30, device=dev), True),
+            "grazing": (o_r, d_r, tm_r, False)}
+    out = {}
+    for name, (o, d, t_max, sort) in sets.items():
+        _, o_p, d_p, tm_p = TT.blocks(tl, o, d, t_max, sort)
+        rays = TT.slab_rays(o_p, d_p, tm_p)
+        feat = TT.block_features(o_p, d_p)
+        tmb = tm_p.reshape(-1, TT.RT_WALK)
+        G = rays.shape[0]
+        vote = TT.cull(tl.bounds, rays)
+        order, n_eff, mask = TT.worklists(tl, vote)
+        t_k, id_k = TT.walk(tl.table, order, n_eff, mask, feat, tmb,
+                            tl.fsub)
+        sub = _pick_blocks(n_eff, G)
+        vote_p, cull_plain_ms = _once_ms(
+            lambda: TT.cull_plain(tl.bounds, rays[sub]))
+        if not torch.equal(vote_p, vote[sub]):
+            raise AssertionError(f"B3 {name}: votes differ on "
+                                 f"{int((vote_p != vote[sub]).sum())} pairs")
+        (t_p, id_p), walk_plain_ms = _once_ms(lambda: TT.walk_plain(
+            tl.table, order[sub], n_eff[sub], mask[sub], feat[sub],
+            tmb[sub], tl.fsub))
+        bits_p, bits_k = t_p.view(torch.int32), t_k[sub].view(torch.int32)
+        if not (torch.equal(id_p, id_k[sub]) and torch.equal(bits_p, bits_k)):
+            raise AssertionError(
+                f"B4 {name}: ids differ on {int((id_p != id_k[sub]).sum())}"
+                f" rays, t bits on {int((bits_p != bits_k).sum())}")
+        if name == "grazing" and not bool((n_eff[sub] > TT.MAXS).any()):
+            raise AssertionError("B4 grazing: no dense-walk block compared")
+        cull_err = float((vote_p.float() - vote[sub].float()).abs().max())
+        walk_err = float((t_p - t_k[sub]).abs().max())
+        cull_ms = _median_ms(lambda: TT.cull(tl.bounds, rays))
+        walk_ms = _median_ms(lambda: TT.walk(tl.table, order, n_eff, mask,
+                                             feat, tmb, tl.fsub))
+        # The kernels on the plain versions' blocks: like-for-like times.
+        walk_sub = (tl.table, order[sub], n_eff[sub], mask[sub], feat[sub],
+                    tmb[sub], tl.fsub)
+        rays_sub = rays[sub]
+        cull_sub_ms = _median_ms(lambda: TT.cull(tl.bounds, rays_sub))
+        walk_sub_ms = _median_ms(lambda: TT.walk(*walk_sub))
+        # Worklist statistics and the work these rays need.
+        count = vote.reshape(G, tl.n_sub, tl.fsub).any(-1).sum(1)
+        dense = n_eff > TT.MAXS
+        live = (tmb > 0).sum(1)
+        walked = ~dense & (count > 0)
+        fine = vote.sum(1)
+        sub_sg = count * tl.fsub  # subgroups in the walked subtiles
+        gated = float(1 - fine[walked].sum() / max(int(sub_sg[walked].sum()),
+                                                    1))
+        req = torch.where(dense, tl.n_sub * tl.fsub, fine) * (
+            TT.ST // tl.fsub)  # triangles each block's walk tests
+        pairs = int((live * req).sum())
+        tests = _cull_tests(tl.bounds, rays)
+        b3 = _bound(tests * B3_OPS, _nbytes(tl.bounds, rays, vote))
+        b4 = _bound(pairs * B4_OPS, _nbytes(tl.table, order, n_eff, mask,
+                                            feat, tmb, t_k, id_k))
+        print(f"B3/B4 {name}: {o.shape[0]} rays ({int(live.sum())} live) in "
+              f"{G} blocks, sort={sort}; worklist mean "
+              f"{float(count.float().mean()):.1f} max {int(count.max())} of "
+              f"{tl.n_sub} subtiles, {int(dense.sum())} dense-walk blocks, "
+              f"mask gates off {gated:.4f} of the walked subgroups; "
+              f"{tests} box tests, {pairs} (ray, triangle) pairs", flush=True)
+        print(f"B3 {name}: votes equal on {len(sub)} blocks; kernel "
+              f"{cull_ms:.3f} ms ({G} blocks), {cull_sub_ms:.3f} ms and "
+              f"plain {cull_plain_ms:.3f} ms (once) on the {len(sub)} "
+              f"compared blocks, bound {b3[0]:.3f} ms ({b3[1]}, {G} blocks) "
+              f"[{card}]", flush=True)
+        print(f"B4 {name}: (t, id) bit-identical on {len(sub)} blocks "
+              f"({int(dense[sub].sum())} dense), {int((id_k >= 0).sum())} "
+              f"hits; kernel {walk_ms:.3f} ms ({G} blocks), {walk_sub_ms:.3f}"
+              f" ms and plain {walk_plain_ms:.3f} ms (once) on the "
+              f"{len(sub)} compared blocks, bound {b4[0]:.3f} ms ({b4[1]}, "
+              f"{G} blocks) [{card}]", flush=True)
+        out[name] = dict(blocks=G, plain_blocks=len(sub), cull_ms=cull_ms,
+                         walk_ms=walk_ms, cull_sub_ms=cull_sub_ms,
+                         walk_sub_ms=walk_sub_ms, cull_plain_ms=cull_plain_ms,
+                         walk_plain_ms=walk_plain_ms, cull_err=cull_err,
+                         walk_err=walk_err, b3=b3, b4=b4)
+    return out
 
 
 def main() -> int:
@@ -321,10 +712,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
-    b1 = phase_b1(rng, card)
-    b2 = phase_b2(rng, card)
-    launches = phase_main_path(card)
-    phase_small_reference(card)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    b1 = phase("B1", phase_b1, rng, card)
+    b2 = phase("B2", phase_b2, rng, card)
+    launches = phase("staircase main path", phase_main_path, card)
+    phase("small staircase", phase_small_reference, card, "staircase",
+          scene_small())
+    r, tl_launches, render_s = phase("terrain main path",
+                                     phase_terrain_main_path, card)
+    launches.update(tl_launches)
+    phase("terrain profile", phase_terrain_profile, card, r, render_s)
+    b34 = phase("B3/B4", phase_b3_b4, rng, card, r.s)
+    del r
+    phase("small terrain", phase_small_reference, card, "terrain",
+          terrain_small())
+    cam = b34["camera"]
     kernels = [
         {"name": "B1 fused_intersect", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/fused_intersect.cu",
@@ -332,13 +740,40 @@ def main() -> int:
          "launches": launches["B1"],
          "max_abs_err": max(v["err"] for v in b1.values()),
          "ms": b1["staircase"]["ms"],
-         "plain_ms": b1["staircase"]["plain_ms"]},
+         "plain_ms": b1["staircase"]["plain_ms"],
+         "bound_ms": b1["staircase"]["bound_ms"],
+         "bound_by": b1["staircase"]["bound_by"], "library_ms": None},
         {"name": "B2 stat_filter", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/stat_filter.cu",
          "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
          "launches": launches["B2"],
          "max_abs_err": max(v["err"] for v in b2.values()),
-         "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"]},
+         "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"],
+         "bound_ms": b2[True]["bound_ms"], "bound_by": b2[True]["bound_by"],
+         "library_ms": None},
+        # B3/B4: ms and bound_ms on all `blocks` of the camera rays;
+        # plain_ms, and the kernel's subset_ms beside it, on the
+        # `plain_blocks` blocks where the two were compared.
+        {"name": "B3 twolevel_cull", "route": "cuda",
+         "source": "statmc_tpu_torch/csrc/twolevel_cull.cu",
+         "replaces": "statmc_tpu/accel/twolevel.py:249",
+         "launches": launches["B3"],
+         "max_abs_err": max(v["cull_err"] for v in b34.values()),
+         "ms": cam["cull_ms"], "plain_ms": cam["cull_plain_ms"],
+         "bound_ms": cam["b3"][0], "bound_by": cam["b3"][1],
+         "library_ms": None, "blocks": cam["blocks"],
+         "plain_blocks": cam["plain_blocks"],
+         "subset_ms": cam["cull_sub_ms"]},
+        {"name": "B4 twolevel_walk", "route": "cuda",
+         "source": "statmc_tpu_torch/csrc/twolevel_walk.cu",
+         "replaces": "statmc_tpu/accel/twolevel.py:406",
+         "launches": launches["B4"],
+         "max_abs_err": max(v["walk_err"] for v in b34.values()),
+         "ms": cam["walk_ms"], "plain_ms": cam["walk_plain_ms"],
+         "bound_ms": cam["b4"][0], "bound_by": cam["b4"][1],
+         "library_ms": None, "blocks": cam["blocks"],
+         "plain_blocks": cam["plain_blocks"],
+         "subset_ms": cam["walk_sub_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .accel.fused import FusedTris
+from .accel.twolevel import TwoLevelTris
 from .render.lightdistrib import LightDistribution
 from .scene.build import SceneTables
 from .scene.textures import TextureTable
@@ -30,6 +31,17 @@ def fused_tris(ft, device="cpu") -> FusedTris:
         tile_bounds=np.asarray(ft.tile_bounds),
         perm=None if ft.perm is None else np.asarray(ft.perm),
         n_tris=int(ft.n_tris)).to_device(device)
+
+
+def twolevel_tris(tl, device="cpu") -> TwoLevelTris:
+    """A JAX-package TwoLevelTris -> the port's TwoLevelTris on `device`."""
+    return TwoLevelTris(
+        table=np.asarray(tl.table), bounds=np.asarray(tl.bounds),
+        bounds_planar=np.asarray(tl.bounds_planar),
+        perm=None if tl.perm is None else np.asarray(tl.perm),
+        n_tris=int(tl.n_tris), n_sub=int(tl.n_sub), fsub=int(tl.fsub),
+        world_lo=np.asarray(tl.world_lo),
+        world_ext=np.asarray(tl.world_ext)).to_device(device)
 
 
 def light_distribution(dist, device="cpu") -> LightDistribution:

@@ -34,6 +34,12 @@ _SIGNATURES = {
     # normalize, out, wsum, stream
     "statmc_stat_filter": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                            _i, ctypes.c_float, _i, _vp, _vp, _vp],
+    # bounds, rays, n_blocks, nf, vote, stream
+    "statmc_twolevel_cull": [_vp, _vp, _i, _i, _vp, _vp],
+    # table, order, count, mask, n_words, feat, t_max, n_blocks, n_sub,
+    # fsub, t_out, id_out, stream
+    "statmc_twolevel_walk": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i,
+                             _vp, _vp, _vp],
 }
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .accel.fused import FUSED_MAX_TRIS, FusedTris
+from .accel.twolevel import TwoLevelTris
 from .core import rng as crng
 from .core import spectrum as spec
 from .denoise.filter import StatDenoiser
@@ -43,14 +44,13 @@ PIXEL_BLOCK = 1 << 20
 # Port queue items in ROADMAP.md that the NotImplementedError gates name.
 _ITEM_LD = "LD samplers"
 _ITEM_TEX = "Textures"
-_ITEM_TWOLEVEL = "Two-level path (> 16,384 triangles, kernels B3 and B4)"
 _ITEM_REST = "Rest of slice 4"
 
 
 @dataclass
 class RenderSetup:
     scene: SceneTables  # tensors on `device`
-    bvh: Any  # FusedTris (tensors) or None for a scene without triangles
+    bvh: Any  # FusedTris / TwoLevelTris (tensors), None without triangles
     dist: Any  # LightDistribution
     cam: CAM.CameraParams
     icfg: IntegratorConfig
@@ -83,10 +83,6 @@ def _check_supported(desc: SceneDescription) -> None:
         raise _unported('Accelerator "kdtree"', _ITEM_REST)
     if desc.camera_name == "realistic":
         raise _unported('Camera "realistic"', _ITEM_REST)
-    for sd in desc.shapes:
-        if sd.shape_type not in ("trianglemesh", "plymesh", "sphere"):
-            raise _unported(f'Shape "{sd.shape_type}" (tessellated shapes '
-                            "and hair curves)", _ITEM_REST)
     mats = [sd.material for sd in desc.shapes] + list(
         desc.named_materials.values())
     for md in mats:
@@ -134,14 +130,23 @@ def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
     return scene_np._replace(**fields)
 
 
-def prepare(desc: SceneDescription, base_seed: int = 0, device="cpu",
-            strict_assets: bool | None = None) -> RenderSetup:
+def _device(device) -> torch.device:
+    """The render device; a CUDA device without CUDA raises (the port
+    never falls back to the CPU on its own)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("statmc_tpu_torch: device 'cuda' was asked for "
+                           "but torch finds no CUDA device; pass "
+                           "device='cpu' to run the plain PyTorch kernels")
+    return device
+
+
+def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
+            strict_assets: bool | None = None) -> RenderSetup:
+    device = _device(device)
     _check_supported(desc)
     scene_np = _morton_order_scene(build_scene(desc, strict=strict_assets))
     n_tris = scene_np.tri_p0.shape[0]
-    if n_tris > FUSED_MAX_TRIS:
-        raise _unported(f"a scene of {n_tris} triangles", _ITEM_TWOLEVEL)
     if np.any(scene_np.mat_kd_tex >= 0):
         raise _unported("textured materials", _ITEM_TEX)
     width = int(desc.film_params.find_one("xresolution", 640))
@@ -202,9 +207,14 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cpu",
             (xs >= pb[0]) & (xs < pb[1]) & (ys >= pb[2]) & (ys < pb[3]),
             device=device)
 
-    bvh = (FusedTris.from_tris(scene_np.tri_p0, scene_np.tri_e1,
-                               scene_np.tri_e2).to_device(device)
-           if n_tris > 0 else None)
+    # Up to FUSED_MAX_TRIS the fused table (kernel B1); above it the
+    # two-level traversal (kernels B3 and B4), as statmc_tpu/driver.py
+    # chooses.  The scene is Morton-ordered already, so perm is None.
+    bvh = None
+    if n_tris > 0:
+        acc = FusedTris if n_tris <= FUSED_MAX_TRIS else TwoLevelTris
+        bvh = acc.from_tris(scene_np.tri_p0, scene_np.tri_e1,
+                            scene_np.tri_e2).to_device(device)
     dist = make_distribution(scene_np, ecfg.light_strategy, device=device)
     scene = scene_np.to_device(device)
     albedo_luts = (precompute_material_curves(scene)
@@ -480,9 +490,10 @@ class Renderer:
         return logs
 
 
-def load(scene_path: str, base_seed: int = 0, device="cpu",
+def load(scene_path: str, base_seed: int = 0, device="cuda",
          strict_assets: bool | None = None) -> Renderer:
-    """Parse a pbrt scene and build its Renderer on `device`.  Scene
+    """Parse a pbrt scene and build its Renderer on `device` (the card by
+    default; "cpu" runs the kernels' plain PyTorch versions).  Scene
     features the port does not render yet raise NotImplementedError."""
     desc = parse_scene(scene_path)
     return Renderer(prepare(desc, base_seed, device=device,

@@ -1,9 +1,11 @@
 """Primitive intersection + hit assembly (port of
 statmc_tpu/render/intersect.py).
 
-Triangles go through the fused intersector (accel/fused.py, kernel B1);
-spheres are tested densely with the quadric.  Hair tangents and texture
-footprints are not ported (their scenes are refused by driver.prepare).
+Triangles go through the fused intersector (accel/fused.py, kernel B1)
+or, above FUSED_MAX_TRIS, the two-level traversal (accel/twolevel.py,
+kernels B3 and B4); spheres are tested densely with the quadric.  Hair
+tangents and texture footprints are not ported (their scenes are refused
+by driver.prepare).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..accel.fused import FusedTris, intersect_fused
+from ..accel.twolevel import TwoLevelTris, intersect_twolevel
 from ..core import math as cm
 from ..scene.build import SceneTables
 
@@ -169,9 +172,18 @@ def _closest_sphere(scene, o, d, t_best, kind, idx):
             torch.where(better, j.to(torch.int32), idx))
 
 
-def intersect_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None,
+def _intersect_tris(bvh, o, d, t_max):
+    """Closest triangle hit (t, tri_id, hit) through the accelerator the
+    driver chose for the scene (statmc_tpu's _bvh_intersect)."""
+    if isinstance(bvh, TwoLevelTris):
+        return intersect_twolevel(bvh, o, d, t_max)
+    return intersect_fused(bvh, o, d, t_max)
+
+
+def intersect_scene(scene: SceneTables, o, d, t_max,
+                    bvh: FusedTris | TwoLevelTris | None,
                     lean: bool = False) -> Hit:
-    """Closest hit: dense spheres, then triangles through kernel B1.
+    """Closest hit: dense spheres, then triangles through B1 or B3 + B4.
     bvh is None only for a scene without triangles."""
     R = o.shape[0]
     t_best = t_max
@@ -180,7 +192,7 @@ def intersect_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None,
     if scene.sph_center.shape[0] > 0:
         t_best, kind, idx = _closest_sphere(scene, o, d, t_best, kind, idx)
     if scene.tri_p0.shape[0] > 0:
-        tt, tid, found = intersect_fused(bvh, o, d, t_best)
+        tt, tid, found = _intersect_tris(bvh, o, d, t_best)
         better = found & (tt < t_best)
         t_best = torch.where(better, tt, t_best)
         kind = torch.where(better, PRIM_TRI, kind)
@@ -188,14 +200,15 @@ def intersect_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None,
     return _assemble_hit(scene, o, d, t_best, kind, idx, lean=lean)
 
 
-def occluded_scene(scene: SceneTables, o, d, t_max, bvh: FusedTris | None):
-    """Any-hit (shadow) test via dense spheres + kernel B1 (a full
-    closest-hit, as in the JAX package)."""
+def occluded_scene(scene: SceneTables, o, d, t_max,
+                   bvh: FusedTris | TwoLevelTris | None):
+    """Any-hit (shadow) test via dense spheres + the triangle accelerator
+    (a full closest hit, as in the JAX package)."""
     blocked = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     if scene.sph_center.shape[0] > 0:
         _, hit = ray_spheres(o, d, scene.sph_center, scene.sph_radius, t_max)
         blocked |= torch.any(hit, dim=-1)
     if scene.tri_p0.shape[0] > 0:
-        _, _, found = intersect_fused(bvh, o, d, t_max)
+        _, _, found = _intersect_tris(bvh, o, d, t_max)
         blocked |= found
     return blocked

@@ -4,7 +4,7 @@
 
 Copied from the JAX package with its behaviour unchanged for every
 feature the port renders.  Features the slice does not port (hair,
-Fourier and subsurface materials, media, tessellated shapes, image and
+Fourier and subsurface materials, media, image and
 procedural textures, image lights and environment maps) are refused by
 ``driver.prepare`` before this module runs; the few table columns they
 would fill are dropped here.
@@ -581,9 +581,15 @@ def build_scene(desc: SceneDescription,
         mid = material_id(sd.material)
         lid = add_area_light(sd.area_light) if sd.area_light is not None else -1
         if sd.shape_type not in ("sphere",):
-            # Other shape plugins tessellate in the JAX package; the
-            # port refuses them in driver.prepare.
-            mesh = _load_mesh(sd, missing_assets)
+            if sd.shape_type in ("trianglemesh", "plymesh"):
+                mesh = _load_mesh(sd, missing_assets)
+            else:
+                # Every other pbrt shape plugin (disk/cylinder/cone/
+                # paraboloid/hyperboloid/curve/heightfield/loopsubdiv/
+                # nurbs) tessellates into the same flat triangle tables.
+                from .tessellate import tessellate_shape
+
+                mesh = tessellate_shape(sd)
             if mesh is None:
                 continue
             P, N, UV, idx = mesh

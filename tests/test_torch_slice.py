@@ -69,7 +69,7 @@ def tiny(tmp_path_factory):
                              maxdepth=4, denoise=True, filterradius=2),
                   tmp_path_factory.mktemp("tiny"))
     return path, JD.prepare(j_parse(path)), TD.prepare(
-        TD.parse_scene(path))
+        TD.parse_scene(path), device="cpu")
 
 
 def test_package_imports_without_jax():
@@ -103,15 +103,14 @@ def test_package_imports_without_jax():
     (("Material \"glass\" \"float index\" [1.5]",
       "Texture \"ck\" \"spectrum\" \"checkerboard\"\n"
       "Material \"matte\" \"texture Kd\" \"ck\""), "Textures"),
-    (("WorldEnd", "AttributeBegin\nShape \"disk\"\nAttributeEnd\nWorldEnd"),
-     "Rest of slice 4"),
+    (("WorldBegin", "Accelerator \"kdtree\"\nWorldBegin"), "Rest of slice 4"),
 ])
 def test_unported_features_raise(edit, item, tmp_path):
     text = scene_text(width=8, height=8, spp=1, iterations=1, maxdepth=2)
     assert edit[0] in text
     path = _write(text.replace(edit[0], edit[1]), tmp_path)
     with pytest.raises(NotImplementedError, match=item):
-        TD.load(path)
+        TD.load(path, device="cpu")
 
 
 def test_camera_and_scene_tables_match(tiny):
@@ -320,7 +319,7 @@ def test_slice_end_to_end(strategy, tmp_path):
     path = _write(scene_text(width=24, height=16, spp=2, iterations=2,
                              maxdepth=4, denoise=True, filterradius=2,
                              extra_integrator=extra), tmp_path)
-    rj, rt = JD.load(path), TD.load(path)
+    rj, rt = JD.load(path), TD.load(path, device="cpu")
     lj = rj.render(verbose=False)
     lt = rt.render(verbose=False)
     assert [x["rays_total"] for x in lj] == [x["rays_total"] for x in lt]

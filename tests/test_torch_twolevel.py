@@ -1,0 +1,431 @@
+"""The port's two-level traversal (statmc_tpu_torch/accel/twolevel.py:
+plain B3 and B4, and the glue between them) against the JAX package's
+statmc_tpu/accel/twolevel.py, and the large-scene path end to end.
+
+XLA's CPU dot evaluates the walk's 16-term products as a fused
+multiply-add chain in row order, which is the chain kernel B4 and
+walk_plain evaluate, so t agrees bit for bit with _walk_xla
+(test_plain_walk_matches_walk_xla); ids are exact.  The cull is an
+elementwise slab test: votes are equal to the XLA fallback's and to the
+Pallas kernel's in interpret mode.  _walk_xla lets a subgroup that the
+submask gates off offer t = 1e30, which wins only against t_max > 1e30;
+the Pallas kernel and the port skip such a subgroup, so the inputs keep
+t_max <= 1e30, the integrator's INF.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import statmc_tpu.driver as JD
+from statmc_tpu.accel import twolevel as JT
+from statmc_tpu.core import rng as JR
+from statmc_tpu.render import camera as JC
+from statmc_tpu.render import integrator as JI
+from statmc_tpu.scene.api import parse_scene as j_parse
+from statmc_tpu.testscenes import scene_text, terrain_scene_text
+import statmc_tpu_torch.driver as TD
+from statmc_tpu_torch import convert
+from statmc_tpu_torch.accel import fused as TF
+from statmc_tpu_torch.accel import twolevel as TT
+from statmc_tpu_torch.render import camera as TC
+from statmc_tpu_torch.render import integrator as TI
+
+torch.set_num_threads(2)
+
+
+def _tris(T, seed, spread=10.0, size=0.5):
+    rng = np.random.default_rng(seed)
+    p0 = ((rng.random((T, 3)) * 2 - 1) * spread).astype(np.float32)
+    e1 = ((rng.random((T, 3)) - 0.5) * 2 * size).astype(np.float32)
+    e2 = ((rng.random((T, 3)) - 0.5) * 2 * size).astype(np.float32)
+    return p0, e1, e2
+
+
+def _rays(R, seed, spread=12.0, dead_every=0):
+    """Random rays; t_max mixes INF (1e30), finite cuts and, when asked,
+    dead lanes (0) every `dead_every`-th lane."""
+    rng = np.random.default_rng(seed)
+    o = ((rng.random((R, 3)) * 2 - 1) * spread).astype(np.float32)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(np.arange(R) % 2 == 0, 1e30,
+                     rng.uniform(2.0, 30.0, R)).astype(np.float32)
+    if dead_every:
+        t_max[::dead_every] = 0.0
+    return o, d, t_max
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _pair(T, seed, fsub=None):
+    tris = _tris(T, seed)
+    jt = JT.TwoLevelTris.from_tris(*tris, fsub=fsub)
+    return tris, jt, convert.twolevel_tris(jt)
+
+
+@pytest.mark.parametrize("T,fsub,seed", [(2000, None, 0), (700, 1, 1),
+                                         (129, None, 2)])
+def test_tables_identical_to_jax(T, fsub, seed):
+    """from_tris: tables, bounds, bounds_planar, perm and the world box
+    equal the JAX package's, with fine (fsub = 4) and coarse (fsub = 1)
+    subgroups; convert.twolevel_tris carries them over unchanged."""
+    tris = _tris(T, seed)
+    jt = JT.TwoLevelTris.from_tris(*tris, fsub=fsub)
+    tt = TT.TwoLevelTris.from_tris(*tris, fsub=fsub)
+    for f in ("table", "bounds", "bounds_planar", "perm", "world_lo",
+              "world_ext"):
+        np.testing.assert_array_equal(np.asarray(getattr(tt, f)),
+                                      np.asarray(getattr(jt, f)), f)
+    for f in ("n_tris", "n_sub", "fsub"):
+        assert getattr(tt, f) == getattr(jt, f), f
+    ct = convert.twolevel_tris(jt)
+    np.testing.assert_array_equal(ct.table.numpy(), tt.table)
+    assert ct.perm.dtype == torch.int32
+
+
+def _jax_blocks(o, d, t_max):
+    """The JAX package's padded block inputs (unsorted)."""
+    R = o.shape[0]
+    G = -(-R // JT.RT_WALK)
+    pad = G * JT.RT_WALK - R
+    o_p = np.pad(o, ((0, pad), (0, 0)))
+    d_p = np.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
+    tm_p = np.pad(t_max, (0, pad))
+    return o_p, d_p, tm_p
+
+
+@pytest.mark.parametrize("fsub", [None, 1])
+def test_plain_cull_matches_xla_and_pallas_interpret(fsub):
+    """Votes equal _votes_xla and the Pallas kernel (interpret mode)
+    exactly, with dead lanes, a dead block and a partial last block."""
+    _, jt, tt = _pair(700, 3, fsub)
+    R = 2 * JT.RT_WALK + 100
+    o, d, t_max = _rays(R, 4, dead_every=7)
+    t_max[JT.RT_WALK:2 * JT.RT_WALK] = 0.0  # a dead block
+    o_p, d_p, tm_p = _jax_blocks(o, d, t_max)
+    vote_x = np.asarray(JT._votes_xla(jt.bounds, jnp.asarray(o_p),
+                                      jnp.asarray(d_p), jnp.asarray(tm_p)))
+    inv = jnp.where(jnp.abs(d_p) > 1e-12,
+                    1.0 / jnp.where(d_p == 0, 1.0, d_p),
+                    jnp.where(d_p < 0, -1e12, 1e12))
+    rays_t = jnp.concatenate(
+        [jnp.asarray(o_p), inv, jnp.asarray(tm_p)[:, None],
+         jnp.zeros((o_p.shape[0], 1))], axis=-1).reshape(-1, JT.RT_WALK, 8)
+    live = (jnp.max(jnp.asarray(tm_p).reshape(-1, JT.RT_WALK), axis=1) > 0
+            ).astype(jnp.int32)
+    nf = jt.n_sub * jt.fsub
+    vote_p = np.asarray(JT._votes_pallas(jt.bounds_planar, rays_t, live,
+                                         interpret=True))[:, :nf] > 0.5
+    rays = TT.slab_rays(_t(o_p), _t(d_p), _t(tm_p))
+    np.testing.assert_array_equal(rays.numpy(), np.asarray(rays_t))
+    vote_t = TT.cull(tt.bounds, rays).numpy()
+    np.testing.assert_array_equal(vote_t, vote_x)
+    np.testing.assert_array_equal(vote_t, vote_p)
+    assert vote_t.any() and not vote_t[1].any()
+
+
+@pytest.mark.parametrize("G,nst,p", [(6, 1028, 0.2), (4, 500, 0.9),
+                                     (3, 37, 0.5)])
+def test_compact_and_submask_match_jax(G, nst, p):
+    """Worklists (ascending ids, nst in unused slots, the dense sentinel
+    past MAXS) and submask words (bit 31 set) equal the JAX package's."""
+    rng = np.random.default_rng(G * nst)
+    vote = rng.random((G, nst)) < p
+    vote[0] = True  # > MAXS votes: the dense walk
+    vote[-1] = False  # an empty worklist
+    jo, jn = (np.asarray(x) for x in JT._compact(jnp.asarray(vote)))
+    to, tn = TT._compact(_t(vote))
+    np.testing.assert_array_equal(to.numpy(), jo)
+    np.testing.assert_array_equal(tn.numpy(), jn)
+    assert tn.dtype == torch.int32 and to.dtype == torch.int32
+    assert jn[0] == nst if nst > JT.MAXS else True
+    fine = rng.random((G, nst * 4)) < p
+    fine[:, 31] = True
+    jw = np.asarray(JT._pack_submask(jnp.asarray(fine), 4))
+    tw = TT._pack_submask(_t(fine))
+    np.testing.assert_array_equal(tw.numpy(), jw)
+    assert tw.dtype == torch.int32 and (tw.numpy()[:, 0] < 0).all()
+
+
+def _jax_walk_inputs(jt, o, d, t_max):
+    o_p, d_p, tm_p = _jax_blocks(o, d, t_max)
+    G = tm_p.shape[0] // JT.RT_WALK
+    vote_f = JT._votes_xla(jt.bounds, jnp.asarray(o_p), jnp.asarray(d_p),
+                           jnp.asarray(tm_p))
+    if jt.fsub > 1:
+        vote = vote_f.reshape(G, jt.n_sub, jt.fsub).any(-1)
+        mask = JT._pack_submask(vote_f, jt.fsub)
+    else:
+        vote, mask = vote_f, jnp.zeros((G, 1), jnp.int32)
+    order, n_eff = JT._compact(vote)
+    feat = JT.ray_features16(jnp.asarray(o_p), jnp.asarray(d_p)).reshape(
+        G, JT.RT_WALK, 16).transpose(0, 2, 1)
+    return order, n_eff, mask, feat, jnp.asarray(tm_p).reshape(G, JT.RT_WALK)
+
+
+@pytest.mark.parametrize("fsub,dense", [(None, False), (1, False),
+                                        (None, True)])
+def test_plain_walk_matches_walk_xla(fsub, dense):
+    """walk_plain on the JAX package's worklists: ids exact and t bit for
+    bit (the same FMA chain as XLA's CPU dot).  dense packs 60,000 small
+    triangles around the rays' origins, so blocks vote for more than
+    MAXS subtiles and walk densely."""
+    tris = (_tris(60000, 8, spread=2.0, size=0.1) if dense
+            else _tris(3000, 5))
+    jt = JT.TwoLevelTris.from_tris(*tris, fsub=fsub)
+    tt = convert.twolevel_tris(jt)
+    o, d, t_max = _rays(2 * JT.RT_WALK, 6, spread=3.0 if dense else 12.0,
+                        dead_every=5)
+    args = _jax_walk_inputs(jt, o, d, t_max)
+    assert (np.asarray(args[1]) > JT.MAXS).any() == dense
+    jt_, jid = (np.asarray(x) for x in JT._walk_xla(jt, *args))
+    tt_, tid = TT.walk(tt.table, *(_t(x) for x in args), tt.fsub)
+    np.testing.assert_array_equal(tid.numpy(), jid)
+    np.testing.assert_array_equal(tt_.numpy().view(np.int32),
+                                  jt_.view(np.int32))
+    assert (jid >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_intersect_twolevel_matches_jax(sort):
+    """Whole intersect calls with dead lanes: (t, id, hit) equal the JAX
+    package's bit for bit, sorted (Morton partition) or not."""
+    tris, jt, _ = _pair(2500, 9)
+    tt = TT.TwoLevelTris.from_tris(*tris).to_device("cpu")
+    assert tt.perm is not None  # random order: the id remap is exercised
+    o, d, t_max = _rays(1300, 10, dead_every=3)
+    jr = [np.asarray(x) for x in JT.intersect_twolevel(
+        jt, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max), sort=sort)]
+    tr = [x.numpy() for x in TT.intersect_twolevel(
+        tt, _t(o), _t(d), _t(t_max), sort=sort)]
+    np.testing.assert_array_equal(tr[1], jr[1])
+    np.testing.assert_array_equal(tr[2], jr[2])
+    np.testing.assert_array_equal(tr[0].view(np.int32), jr[0].view(np.int32))
+    assert not tr[2][::3].any() and tr[2].sum() > 50
+
+
+def test_partitions_match_jax():
+    """The Morton and octant partitions give the JAX package's lane order
+    (stable sorts of the same keys), dead lanes last."""
+    tris, jt, tt = _pair(2500, 11)
+    o, d, t_max = _rays(3000, 12, dead_every=4)
+    jp, jpos = JT._morton_partition(jt, jnp.asarray(o), jnp.asarray(d),
+                                    jnp.asarray(t_max))
+    tp, tpos = TT._morton_partition(tt, _t(o), _t(d), _t(t_max))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    jp, jpos = JT._octant_partition(jnp.asarray(o), jnp.asarray(d),
+                                    jnp.asarray(t_max))
+    tp, tpos = TT._octant_partition(_t(o), _t(d), _t(t_max))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    assert (t_max[tp.numpy()[-750:]] == 0).all()
+
+
+def test_twolevel_matches_fused():
+    """On a table within the fused cap, the two-level path gives the
+    port's intersect_fused answers: ids exact, t bit for bit."""
+    tris = _tris(3000, 13)
+    o, d, t_max = _rays(1024, 14, dead_every=6)
+    ft = TF.FusedTris.from_tris(*tris).to_device("cpu")
+    tt = TT.TwoLevelTris.from_tris(*tris).to_device("cpu")
+    a = TF.intersect_fused(ft, _t(o), _t(d), _t(t_max))
+    b = TT.intersect_twolevel(tt, _t(o), _t(d), _t(t_max))
+    np.testing.assert_array_equal(b[1].numpy(), a[1].numpy())
+    np.testing.assert_array_equal(b[0].numpy(), a[0].numpy())
+    assert a[2].sum() > 50
+
+
+def test_worklists_are_conservative():
+    """Every subtile (and fine subgroup) that holds a ray's true closest
+    hit is in its block's worklist (or the block walks densely)."""
+    tris = _tris(3000, 15)
+    ft = TF.FusedTris.from_tris(*tris).to_device("cpu")
+    tt = TT.TwoLevelTris.from_tris(*tris).to_device("cpu")
+    o, d, t_max = _rays(2 * TT.RT_WALK, 16)
+    _, hit_id, hit = TF.intersect_fused(ft, _t(o), _t(d), _t(t_max))
+    pos, o_p, d_p, tm_p = TT.blocks(tt, _t(o), _t(d), _t(t_max), sort=False)
+    assert pos is None
+    vote_f = TT.cull(tt.bounds, TT.slab_rays(o_p, d_p, tm_p))
+    order, n_eff, _ = TT.worklists(tt, vote_f)
+    inv = np.empty(tt.n_tris, np.int64)  # original id -> packed id
+    inv[tt.perm[:tt.n_tris].numpy()] = np.arange(tt.n_tris)
+    checked = 0
+    for r in np.nonzero(hit.numpy())[0]:
+        pid = inv[hit_id[r]]
+        g = r // TT.RT_WALK
+        assert vote_f[g, pid // TT.STF], (r, pid)
+        if n_eff[g] <= TT.MAXS:
+            assert pid // TT.ST in order[g, :n_eff[g]].numpy(), (r, pid)
+            checked += 1
+    assert checked > 50
+
+
+def _disk_cylinder_text():
+    """The small staircase proxy with a disk and a cylinder beside it."""
+    text = scene_text(width=8, height=6, spp=1, iterations=1, maxdepth=2)
+    extra = ('AttributeBegin\nTranslate 1 2 0.5\n'
+             'Material "matte" "rgb Kd" [0.5 0.4 0.3]\n'
+             'Shape "disk" "float radius" [1] "float innerradius" [0.2]\n'
+             'Shape "cylinder" "float radius" [0.5] "float zmin" [0]'
+             ' "float zmax" [2]\nAttributeEnd\nWorldEnd')
+    return text.replace("WorldEnd", extra)
+
+
+_SCENES = {
+    # 16x12 terrain proxy at n = 96: 19,554 triangles, past the fused cap.
+    "terrain96": lambda: terrain_scene_text(width=16, height=12, spp=2,
+                                            iterations=2, maxdepth=3, n=96,
+                                            denoise=True),
+    "disk_cylinder": _disk_cylinder_text,
+}
+
+
+@pytest.fixture(scope="module")
+def prepared(tmp_path_factory):
+    """name -> (path, JAX setup, port setup on the CPU), built once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            path = tmp_path_factory.mktemp(name) / "scene.pbrt"
+            path.write_text(_SCENES[name]())
+            cache[name] = (str(path), JD.prepare(j_parse(str(path))),
+                           TD.prepare(TD.parse_scene(str(path)),
+                                      device="cpu"))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("scene", ["terrain96", "disk_cylinder"])
+def test_prepare_tables_match(scene, prepared):
+    """prepare() on tessellated scenes (the heightfield terrain proxy,
+    two-level, and a disk + cylinder beside the staircase proxy, fused):
+    every SceneTables field and the accelerator's tables equal the JAX
+    package's."""
+    _, js, ts = prepared(scene)
+    cs = convert.scene_tables(js.scene)
+    for f in cs._fields:
+        if f == "textures":
+            continue
+        a, b = getattr(cs, f), getattr(ts.scene, f)
+        if a is None or b is None:
+            assert a is None and b is None, f
+        else:
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a), f)
+    assert type(ts.bvh).__name__ == type(js.bvh).__name__
+    assert ts.bvh.perm is None and js.bvh.perm is None
+    if scene == "terrain96":
+        assert ts.bvh.n_tris > TF.FUSED_MAX_TRIS
+        cb, names = convert.twolevel_tris(js.bvh), ("table", "bounds",
+                                                    "bounds_planar")
+    else:
+        # 64 x 1 disk quads and 64 x 16 cylinder quads, two triangles each.
+        assert ts.bvh.n_tris == (js.scene.tri_p0.shape[0]) > 2 * 64 * 17
+        cb, names = convert.fused_tris(js.bvh), ("edge_table", "plane_table",
+                                                 "tile_bounds")
+    for f in names:
+        np.testing.assert_array_equal(getattr(ts.bvh, f).numpy(),
+                                      getattr(cb, f).numpy(), f)
+
+
+def test_terrain_bounce_steps_track_jax(prepared):
+    """From the JAX package's camera rays, the port's _bounce_step follows
+    the compiled JAX step lane for lane on the terrain proxy, with B3 + B4
+    (plain) in every closest-hit, shadow and BSDF-MIS probe: path state
+    and float state equal on every lane through every bounce."""
+    _, js, ts = prepared("terrain96")
+    W, H = 16, 12
+    P = W * H
+    ids = jnp.arange(P, dtype=jnp.int32)
+    keys = JR.pixel_keys(JR.base_key(0), ids, 1)
+    px = jnp.stack([(ids % W).astype(jnp.float32),
+                    (ids // W).astype(jnp.float32)], -1) + JR.draw_2d(
+                        keys, None, 0, 0, 0)
+    o, d = jax.jit(lambda p: JC.generate_rays(js.cam, p))(px)
+    cj = dict(o=o, d=d, **JI._zero_path_carry(P, 1, 1))
+    ct = {k: _t(v) for k, v in cj.items()}
+    kt = _t(keys).to(torch.int64)
+    ones, zeros = jnp.ones((P, 1)), jnp.zeros((P, 1))
+    step_j = jax.jit(lambda c, sis: JI._bounce_step(
+        js.scene, js.bvh, js.dist, js.icfg, c, sis, keys, ones, zeros, zeros,
+        jnp.asarray(False), js.albedo_luts, None))
+    for step in range(js.icfg.max_depth + 1):
+        sis = jnp.full((P,), step, jnp.int32)
+        cj = step_j(cj, sis)
+        ct = TI._bounce_step(ts.scene, ts.bvh, ts.dist, ts.icfg, ct,
+                             _t(sis), kt, _t(ones), _t(zeros), _t(zeros),
+                             False, ts.albedo_luts)
+        for k in ("active", "specular", "bounce"):
+            np.testing.assert_array_equal(ct[k].numpy(), np.asarray(cj[k]))
+        for k in ("ls", "betas", "n_rays", "path_len", "albedo", "normal"):
+            np.testing.assert_allclose(ct[k].numpy(), np.asarray(cj[k]),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{step} {k}")
+    assert float(ct["n_rays"].sum()) > 2 * P
+
+
+@pytest.fixture(scope="module")
+def jax_render(prepared):
+    """The JAX package's render of the 16x12 terrain proxy: (ray totals per
+    iteration, buffers)."""
+    rj = JD.load(prepared("terrain96")[0])
+    totals = [x["rays_total"] for x in rj.render(verbose=False)]
+    return totals, {k: np.asarray(v) for k, v in rj.buffers().items()}
+
+
+def _hold_to_jax(jax_render, rt, share):
+    """rt.render() against the JAX render: equal ray totals and sample
+    counts, every other buffer within rtol 1e-4 on >= share of pixels."""
+    totals, bj = jax_render
+    assert isinstance(rt.s.bvh, TT.TwoLevelTris)
+    assert [x["rays_total"] for x in rt.render(verbose=False)] == totals
+    bt = rt.buffers()
+    assert bj.keys() == bt.keys()
+    for k in bj:
+        a, b = bj[k], np.asarray(bt[k])
+        assert a.shape == b.shape, k
+        if k.endswith("-n"):
+            np.testing.assert_array_equal(b, a, err_msg=k)
+            continue
+        close = np.isclose(b, a, rtol=1e-4, atol=1e-6)
+        close = close.all(-1) if close.ndim == 3 else close
+        assert close.mean() >= share, (k, close.mean())
+    assert np.isfinite(bt["film"]).all() and bt["film"].mean() > 0
+
+
+def test_terrain_end_to_end(prepared, jax_render):
+    """load(...).render() on the 16x12 terrain proxy in both packages:
+    equal ray totals and sample counts; every other buffer within rtol
+    1e-4 on >= 96% of the pixels (measured: 96.88%, the normal G-buffer,
+    to 100%).  The shortfall from 98.5% is the camera rays: ~20% of them
+    differ by an ulp of XLA's approximate rsqrt, which the terrain's 48
+    glass, metal and plastic spheres turn into other paths more often
+    than the staircase proxy's 9 do.  test_terrain_end_to_end_jax_camera
+    is the witness: from the JAX package's camera rays the same render
+    holds 98.5%."""
+    rt = TD.load(prepared("terrain96")[0], device="cpu")
+    _hold_to_jax(jax_render, rt, 0.96)
+
+
+def test_terrain_end_to_end_jax_camera(prepared, jax_render, monkeypatch):
+    """The render of test_terrain_end_to_end (two iterations, ACRR/SMIS
+    feedback, denoise), with the port's camera replaced by the JAX
+    package's compiled generate_rays on the same film points: every
+    buffer within rtol 1e-4 on >= 98.5% of pixels (measured: 100% but
+    m3, 99.48%, one pixel, whose third moment sums its samples in another
+    order than XLA's loop tail)."""
+    path, js, _ = prepared("terrain96")
+    rt = TD.load(path, device="cpu")
+    gen_j = jax.jit(lambda p: JC.generate_rays(js.cam, p))
+
+    def generate_rays(cam, p_film):
+        return tuple(_t(x) for x in gen_j(jnp.asarray(p_film.numpy())))
+
+    monkeypatch.setattr(TC, "generate_rays", generate_rays)
+    _hold_to_jax(jax_render, rt, 0.985)
