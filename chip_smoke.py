@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (statmc_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py --kernels  # phases 1-4 and 9 only: the kernels
+                                     # against their plain versions, no
+                                     # main path, no result lines
 
 Phases, one line each; any failure raises, so the exit code is non-zero
 and the final line is not printed:
 
 1. require CUDA and print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from statmc_tpu_torch/csrc/ with nvcc;
+2. build the CUDA kernels from statmc_tpu_torch/csrc/ with nvcc, and
+   print what ptxas and the runtime report for B1 and B4 (registers,
+   spills, resident blocks per SM);
 3. kernel B1 (fused intersector) against its plain PyTorch version on the
-   staircase proxy's table and on a 16,384-triangle table, 2^20 rays;
+   staircase proxy's table and on a 16,384-triangle table, 2^20 rays:
+   ids equal on every ray and t equal as bits;
 4. kernel B2 (statistical filter) against its plain version at 1280x720,
    radius 20, C = 3, G = 6, CF = 3, normalized and not;
 5. the staircase main path: ``load(scene).render(iterations=2)`` on the
@@ -23,10 +29,12 @@ and the final line is not printed:
    ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
    proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
    set to 0 just before it and read just after;
-8. one more terrain iteration under torch.profiler: device time by
-   kernel and by stage of the two-level intersect call (partition, slab
-   rays, B3, worklists, features, B4, unsort), and the device's busy
-   share of the unprofiled iteration;
+8. the staircase's iteration 2 once more under torch.profiler (device
+   activity only): B1's and B2's device time per iteration; then one more
+   terrain iteration under torch.profiler: device time by
+   kernel (B3's and B4's per iteration) and by stage of the two-level
+   intersect call (partition, slab rays, B3, worklists, features, B4,
+   unsort), and the device's busy share of the unprofiled iteration;
 9. kernels B3 (subgroup cull) and B4 (worklist walk) against their plain
    versions on the terrain's table: its 1280x720 camera rays (sorted, as
    the main path sorts them) and 2^20 random rays grazing the terrain
@@ -42,8 +50,9 @@ version runs once, and its time is that one CUDA-event reading.  Each
 kernel's bound (bound_ms) is the larger of its FP32 operations over
 67 TFLOP/s and its bytes (each input read once, each output written
 once) over 3.35 TB/s, the H100 SXM's published peaks, counting the work
-these inputs need.  Every time is printed with the card's name and power
-limit.  Imports nothing of JAX.
+these inputs need.  main_path_ms is the kernel's device time over one
+profiled iteration of the main path that runs it.  Every time is printed
+with the card's name and power limit.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -61,15 +70,23 @@ N_RAYS = 1 << 20
 # H100 SXM peaks: FP32 outside the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # FP32 operations per unit of work (an FMA counts two):
-# (ray, triangle): the five forms need 25 FMAs (3 edge forms of 6 terms,
-# the plane numerator of 4, the denominator of 3) + the epilogue.
-B1_OPS = 2 * 25 + 15
+# (ray, triangle): the three edge forms need 18 FMAs and the inside test
+# ~7 operations; the plane forms (7 FMAs), the division and the compares
+# are needed only by the small share of pairs that are inside, which the
+# count neglects (that only lowers the bound).
+B1_OPS = 2 * 18 + 7
+# The count before the plane forms were evaluated lazily: all five forms
+# (25 FMAs) + a 15-operation epilogue for every pair.
+EAGER_OPS = 2 * 25 + 15
 B2_OPS_REJECT = 3 * 5  # (pixel, neighbour): the 3-channel acceptance test
 # An accepted pair adds its weight (spatial 3, G = 6 planes x 4), expf
 # (~8), valid and wsum (2) and the CF = 3 sums (2 each).
 B2_OPS_ACCEPT = B2_OPS_REJECT + 3 + 6 * 4 + 8 + 2 + 3 * 2
 B3_OPS = 20  # (ray, subgroup box) slab test
-B4_OPS = B1_OPS  # (ray, triangle): the same five forms and epilogue
+B4_OPS = B1_OPS  # (ray, triangle): the same core as B1
+# The kernels' names in a profiler trace.
+KERNEL_NAMES = {"B1": "fused_intersect", "B2": "stat_filter",
+                "B3": "twolevel_cull", "B4": "twolevel_walk"}
 SUBSET = 64  # blocks of 512 rays on which B3/B4 meet their plain versions
 # The small reference render (phase 6) and the share of its pixels that
 # must agree between the card and the CPU in every buffer (0.9961 at
@@ -84,6 +101,22 @@ def _card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _clocks_under(fn, ms: float) -> str:
+    """nvidia-smi's SM clock and power draw, read while ~2 s of `fn`
+    launches (each `ms` long) keep the card busy."""
+    import torch
+
+    for _ in range(int(2000.0 / max(ms, 0.01)) + 1):
+        fn()  # asynchronous: the queue now holds ~2 s of work
+    time.sleep(0.5)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    return out
 
 
 def _median_ms(fn, warmup: int = 3, reps: int = 10) -> float:
@@ -198,29 +231,35 @@ def phase_b1(rng, card):
         o, d, t_max = (torch.as_tensor(x, device="cuda")
                        for x in _rays(rng, lo, hi))
         raye, rayp = (x.contiguous() for x in F.ray_features(o, d))
-        args = (ft.edge_table, ft.plane_table, raye, rayp, t_max)
+        args = (ft.edge_table, ft.plane_table, raye, rayp, t_max, ft.packed,
+                ft.n_tris)
         t_k, id_k = F.intersect_tiles(*args)
-        (t_p, id_p), plain_ms = _once_ms(lambda: F.intersect_plain(*args))
-        same = id_k == id_p
-        frac = float(same.float().mean())
-        err = float((t_k - t_p)[same].abs().max())
-        rel_ok = bool(torch.all(torch.abs(t_k - t_p)[same]
-                                <= 1e-6 * torch.abs(t_p)[same]))
-        if frac < 0.9999 or not rel_ok:
-            raise AssertionError(f"B1 {name}: ids equal on {frac:.6f} of "
-                                 f"rays, t within rtol 1e-6: {rel_ok}")
+        (t_p, id_p), plain_ms = _once_ms(lambda: F.intersect_plain(*args[:5]))
+        bits_k, bits_p = t_k.view(torch.int32), t_p.view(torch.int32)
+        if not (torch.equal(id_k, id_p) and torch.equal(bits_k, bits_p)):
+            raise AssertionError(
+                f"B1 {name}: ids differ on {int((id_k != id_p).sum())} rays,"
+                f" t bits on {int((bits_k != bits_p).sum())}")
+        err = float((t_k - t_p).abs().max())
         ms = _median_ms(lambda: F.intersect_tiles(*args))
         hits = int((id_k >= 0).sum())
         # Work these rays need: every live ray against every triangle.
         live = int((t_max > 0).sum())
-        bound_ms, bound_by = _bound(live * ft.n_tris * B1_OPS,
-                                    _nbytes(*args, t_k, id_k))
+        nbytes = _nbytes(raye, rayp, t_max, ft.packed, t_k, id_k)
+        bound_ms, bound_by = _bound(live * ft.n_tris * B1_OPS, nbytes)
+        eager_ms, _ = _bound(live * ft.n_tris * EAGER_OPS, nbytes)
         print(f"B1 {name}: {ft.n_tris} tris, {N_RAYS} rays ({live} live), "
-              f"{hits} hits, ids equal {frac:.6f}, max |dt| {err:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once), bound "
-              f"{bound_ms:.3f} ms ({bound_by}) [{card}]", flush=True)
+              f"{hits} hits, (t, id) bit-identical; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms (once), bound {bound_ms:.3f} ms "
+              f"({bound_by}; {bound_ms / ms:.3f} of the kernel's time; "
+              f"{eager_ms:.3f} ms, {eager_ms / ms:.3f}, at {EAGER_OPS} "
+              f"operations a pair) [{card}]", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain_ms, err=err,
                          bound_ms=bound_ms, bound_by=bound_by)
+    # The bound's 67 TFLOP/s assumes the card's boost clock (1,980 MHz).
+    print(f"B1 {name}: SM clock and power under ~2 s of launches: "
+          f"{_clocks_under(lambda: F.intersect_tiles(*args), ms)} [{card}]",
+          flush=True)
     return out
 
 
@@ -297,9 +336,29 @@ def _filter_pairs(mc, d2):
     return pairs, accepted
 
 
+def _profile_iteration(r, i, host: bool = True):
+    """Iteration i of renderer r under torch.profiler: (its log, the
+    sums of `_trace_sums`, seconds spent reading the trace).  host=False
+    records the device only: the kernels' times by name, without the
+    host's ops, ranges and launches, at a fraction of the profiler's
+    cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host else [ProfilerActivity.CUDA]) as prof:
+        log = r.run_iteration(i)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups, launches, stages = _trace_sums(prof)
+    return log, groups, launches, stages, time.perf_counter() - t0
+
+
 def phase_main_path(card):
     """load(scene).render(iterations=2) on the card, launch counts
-    read around it."""
+    read around it.  Returns the launch counts, the renderer (the
+    profile phase runs its iteration 2 again) and iteration 2's
+    render_s."""
     import numpy as np
     import torch
 
@@ -340,7 +399,28 @@ def phase_main_path(card):
           f"radius {RADIUS}, setup {setup_s:.1f} s, film mean "
           f"{film.mean():.5f}, film-f mean {film_f.mean():.5f}, launches "
           f"{launches}", flush=True)
-    return launches
+    return launches, r, logs[-1]["render_s"]
+
+
+def phase_staircase_profile(card, r, render_s):
+    """The staircase main path's iteration 2 once more under
+    torch.profiler (device activity only): B1's and B2's device time per
+    iteration, and the device's busy share of the unprofiled iteration
+    (render_s).  Returns {kernel: device ms per iteration}."""
+    log, groups, _, _, read_s = _profile_iteration(r, 2, host=False)
+    total = sum(ms for ms, _ in groups.values())
+    print(f"staircase profile: iteration 2 again, {log['render_s']:.3f} s "
+          f"render + {log['denoise_s'] * 1e3:.1f} ms denoise profiled, "
+          f"trace read in {read_s:.1f} s; device time {total:.1f} ms in "
+          f"{sum(n for _, n in groups.values())} kernels, busy "
+          f"{total / 1e3 / render_s:.3f} of the unprofiled "
+          f"{render_s:.3f} s; "
+          + ", ".join(f"{g} {ms:.1f} ms ({n})"
+                      for g, (ms, n) in groups.items() if n)
+          + f" [{card}]", flush=True)
+    if groups["B1"][1] <= 0 or groups["B2"][1] <= 0:
+        raise AssertionError("staircase profile: B1 or B2 not in the trace")
+    return {k: groups[k][0] for k in ("B1", "B2")}
 
 
 def phase_small_reference(card, name, text):
@@ -409,11 +489,9 @@ def terrain_small():
                               iterations=2, maxdepth=4, n=96, denoise=True)
 
 
-def phase_terrain_main_path(card):
-    """load(terrain).render(iterations=1) on the card at bench.py's
-    terrain settings; B3's and B4's launch counts read around it.
-    Returns the renderer (its setup feeds the B3/B4 phase)."""
-    import numpy as np
+def _terrain_renderer():
+    """(load(terrain) on the card at bench.py's terrain settings, the
+    seconds it took)."""
     import torch
 
     from statmc_tpu_torch.accel import twolevel as TT
@@ -433,13 +511,27 @@ def phase_terrain_main_path(card):
     if not isinstance(r.s.bvh, TT.TwoLevelTris):
         raise AssertionError(f"terrain: accelerator {type(r.s.bvh).__name__}")
     r.progress = False
+    return r, setup_s
+
+
+def phase_terrain_main_path(card):
+    """load(terrain).render(iterations=1) on the card; B3's and B4's
+    launch counts read around it.  Returns the renderer (its setup feeds
+    the B3/B4 phase)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+
+    held = torch.cuda.memory_allocated()  # the staircase renderer's
+    r, setup_s = _terrain_renderer()
     torch.cuda.reset_peak_memory_stats()
     TT.cull.launches = 0
     TT.walk.launches = 0
     log = r.render(iterations=1, verbose=False)[-1]
     torch.cuda.synchronize()
     launches = {"B3": TT.cull.launches, "B4": TT.walk.launches}
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     film = r.film_mean.cpu().numpy()
     if not (np.isfinite(film).all() and film.mean() > 0):
         raise AssertionError("terrain film: not finite with mean > 0")
@@ -459,8 +551,9 @@ def phase_terrain_main_path(card):
 def _trace_sums(prof):
     """Sums over a finished torch.profiler run, read from its raw events
     (the profiler's own event tree takes minutes to build for the ~10^6
-    events of a terrain iteration): {B3, B4, other: [device ms, kernels]},
-    the kernels launched through the CUDA runtime, and per ``twolevel.*``
+    events of an iteration): {B1, B2, B3, B4, other: [device ms,
+    kernels]}, the kernels launched through the CUDA runtime, and per
+    ``twolevel.*``
     range name [calls, host ms, device ms of the kernels that the ops
     inside it launched]."""
     import bisect
@@ -468,7 +561,7 @@ def _trace_sums(prof):
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    groups = {"B3": [0.0, 0], "B4": [0.0, 0], "other": [0.0, 0]}
+    groups = {k: [0.0, 0] for k in (*KERNEL_NAMES, "other")}
     by_op, ops, ranges, launches = {}, [], [], 0
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -476,8 +569,8 @@ def _trace_sums(prof):
             if e.is_user_annotation():
                 continue  # the device-side span of a range, not a kernel
             ms = e.duration_ns() / 1e6
-            g = groups["B3" if "twolevel_cull" in name else
-                       "B4" if "twolevel_walk" in name else "other"]
+            g = groups[next((k for k, v in KERNEL_NAMES.items()
+                             if v in name), "other")]
             g[0] += ms
             g[1] += 1
             op = e.linked_correlation_id()  # the CPU op that launched it
@@ -510,26 +603,18 @@ def phase_terrain_profile(card, r, render_s):
     device time by kernel (B3, B4, the rest) and by stage of
     intersect_twolevel (its ``twolevel.*`` ranges, summed over the
     iteration's calls), and the device's busy share of the unprofiled
-    iteration (render_s)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        log = r.run_iteration(1)
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    groups, launches, stages = _trace_sums(prof)
+    iteration (render_s).  Returns {kernel: device ms per iteration}."""
+    log, groups, launches, stages, read_s = _profile_iteration(r, 1)
     total = sum(ms for ms, _ in groups.values())
     print(f"terrain profile: iteration 1 again, {log['render_s']:.3f} s "
-          f"profiled, trace read in {time.perf_counter() - t0:.1f} s; "
+          f"profiled, trace read in {read_s:.1f} s; "
           f"device time {total:.1f} ms in "
           f"{sum(n for _, n in groups.values())} kernels ({launches} "
           f"launched through the runtime), busy {total / 1e3 / render_s:.3f}"
           f" of the unprofiled {render_s:.3f} s; "
           + ", ".join(f"{g} {ms:.1f} ms ({n})"
-                      for g, (ms, n) in groups.items()) + f" [{card}]",
-          flush=True)
+                      for g, (ms, n) in groups.items() if n)
+          + f" [{card}]", flush=True)
     # B3 and B4 launch through the kernel library's statically linked
     # CUDA runtime, whose launches the profiler may not link to the
     # enclosing range; the cull and walk ranges launch no other kernel,
@@ -548,6 +633,7 @@ def phase_terrain_profile(card, r, render_s):
     if not stages or groups["B3"][1] <= 0 or groups["B4"][1] <= 0:
         raise AssertionError("terrain profile: no two-level stages or "
                              "kernels in the trace")
+    return {k: groups[k][0] for k in ("B3", "B4")}
 
 
 def _cull_tests(bounds, rays):
@@ -621,7 +707,7 @@ def phase_b3_b4(rng, card, setup):
         vote = TT.cull(tl.bounds, rays)
         order, n_eff, mask = TT.worklists(tl, vote)
         t_k, id_k = TT.walk(tl.table, order, n_eff, mask, feat, tmb,
-                            tl.fsub)
+                            tl.fsub, tl.packed)
         sub = _pick_blocks(n_eff, G)
         vote_p, cull_plain_ms = _once_ms(
             lambda: TT.cull_plain(tl.bounds, rays[sub]))
@@ -642,10 +728,10 @@ def phase_b3_b4(rng, card, setup):
         walk_err = float((t_p - t_k[sub]).abs().max())
         cull_ms = _median_ms(lambda: TT.cull(tl.bounds, rays))
         walk_ms = _median_ms(lambda: TT.walk(tl.table, order, n_eff, mask,
-                                             feat, tmb, tl.fsub))
+                                             feat, tmb, tl.fsub, tl.packed))
         # The kernels on the plain versions' blocks: like-for-like times.
         walk_sub = (tl.table, order[sub], n_eff[sub], mask[sub], feat[sub],
-                    tmb[sub], tl.fsub)
+                    tmb[sub], tl.fsub, tl.packed)
         rays_sub = rays[sub]
         cull_sub_ms = _median_ms(lambda: TT.cull(tl.bounds, rays_sub))
         walk_sub_ms = _median_ms(lambda: TT.walk(*walk_sub))
@@ -663,8 +749,10 @@ def phase_b3_b4(rng, card, setup):
         pairs = int((live * req).sum())
         tests = _cull_tests(tl.bounds, rays)
         b3 = _bound(tests * B3_OPS, _nbytes(tl.bounds, rays, vote))
-        b4 = _bound(pairs * B4_OPS, _nbytes(tl.table, order, n_eff, mask,
-                                            feat, tmb, t_k, id_k))
+        b4_bytes = _nbytes(tl.packed, order, n_eff, mask, feat, tmb, t_k,
+                           id_k)
+        b4 = _bound(pairs * B4_OPS, b4_bytes)
+        b4_eager, _ = _bound(pairs * EAGER_OPS, b4_bytes)
         print(f"B3/B4 {name}: {o.shape[0]} rays ({int(live.sum())} live) in "
               f"{G} blocks, sort={sort}; worklist mean "
               f"{float(count.float().mean()):.1f} max {int(count.max())} of "
@@ -681,7 +769,9 @@ def phase_b3_b4(rng, card, setup):
               f"hits; kernel {walk_ms:.3f} ms ({G} blocks), {walk_sub_ms:.3f}"
               f" ms and plain {walk_plain_ms:.3f} ms (once) on the "
               f"{len(sub)} compared blocks, bound {b4[0]:.3f} ms ({b4[1]}, "
-              f"{G} blocks) [{card}]", flush=True)
+              f"{G} blocks; {b4[0] / walk_ms:.3f} of the kernel's time; "
+              f"{b4_eager:.3f} ms, {b4_eager / walk_ms:.3f}, at {EAGER_OPS} "
+              f"operations a pair) [{card}]", flush=True)
         out[name] = dict(blocks=G, plain_blocks=len(sub), cull_ms=cull_ms,
                          walk_ms=walk_ms, cull_sub_ms=cull_sub_ms,
                          walk_sub_ms=walk_sub_ms, cull_plain_ms=cull_plain_ms,
@@ -690,7 +780,20 @@ def phase_b3_b4(rng, card, setup):
     return out
 
 
-def main() -> int:
+def _print_build(cuda_build):
+    """What the compiler and the runtime report for kernels B1 and B4:
+    ptxas -v (registers, spills, shared memory; only when this process
+    ran the build) and resident blocks per SM."""
+    for line in (cuda_build.ptxas_log or "").splitlines():
+        if any(k in line for k in ("error", "warning", "spill", "Used")):
+            print(f"ptxas: {line.strip()}", flush=True)
+    for kernel in ("fused_intersect", "twolevel_walk"):
+        blocks, regs = cuda_build.occupancy(kernel)
+        print(f"occupancy {kernel}: {regs} registers a thread, {blocks} "
+              f"blocks of 128 threads resident per SM", flush=True)
+
+
+def main(kernels_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -709,6 +812,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{cuda_build.build_seconds if cuda_build.build_seconds else 0:.1f}"
           f" s) [{card}]", flush=True)
+    _print_build(cuda_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
@@ -721,13 +825,28 @@ def main() -> int:
 
     b1 = phase("B1", phase_b1, rng, card)
     b2 = phase("B2", phase_b2, rng, card)
-    launches = phase("staircase main path", phase_main_path, card)
+    if kernels_only:
+        phase("B3/B4", phase_b3_b4, rng, card,
+              phase("terrain setup", _terrain_renderer)[0].s)
+        print("kernels only: no main path driven, no result lines",
+              flush=True)
+        return 0
+    # Both main paths run before the first profile: once torch.profiler
+    # has run in a process, later launches cost the host more (a terrain
+    # iteration took 6.2-7.2 s after a profile and 5.4-6.3 s before one,
+    # in one run on an NVIDIA H100 80GB HBM3).
+    launches, rs, stair_s = phase("staircase main path", phase_main_path,
+                                  card)
     phase("small staircase", phase_small_reference, card, "staircase",
           scene_small())
     r, tl_launches, render_s = phase("terrain main path",
                                      phase_terrain_main_path, card)
     launches.update(tl_launches)
-    phase("terrain profile", phase_terrain_profile, card, r, render_s)
+    path_ms = phase("staircase profile", phase_staircase_profile, card, rs,
+                    stair_s)
+    del rs
+    path_ms.update(phase("terrain profile", phase_terrain_profile, card, r,
+                         render_s))
     b34 = phase("B3/B4", phase_b3_b4, rng, card, r.s)
     del r
     phase("small terrain", phase_small_reference, card, "terrain",
@@ -737,7 +856,7 @@ def main() -> int:
         {"name": "B1 fused_intersect", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/fused_intersect.cu",
          "replaces": "statmc_tpu/accel/fused.py:237",
-         "launches": launches["B1"],
+         "launches": launches["B1"], "main_path_ms": path_ms["B1"],
          "max_abs_err": max(v["err"] for v in b1.values()),
          "ms": b1["staircase"]["ms"],
          "plain_ms": b1["staircase"]["plain_ms"],
@@ -746,7 +865,7 @@ def main() -> int:
         {"name": "B2 stat_filter", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/stat_filter.cu",
          "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
-         "launches": launches["B2"],
+         "launches": launches["B2"], "main_path_ms": path_ms["B2"],
          "max_abs_err": max(v["err"] for v in b2.values()),
          "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"],
          "bound_ms": b2[True]["bound_ms"], "bound_by": b2[True]["bound_by"],
@@ -757,7 +876,7 @@ def main() -> int:
         {"name": "B3 twolevel_cull", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/twolevel_cull.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:249",
-         "launches": launches["B3"],
+         "launches": launches["B3"], "main_path_ms": path_ms["B3"],
          "max_abs_err": max(v["cull_err"] for v in b34.values()),
          "ms": cam["cull_ms"], "plain_ms": cam["cull_plain_ms"],
          "bound_ms": cam["b3"][0], "bound_by": cam["b3"][1],
@@ -767,7 +886,7 @@ def main() -> int:
         {"name": "B4 twolevel_walk", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/twolevel_walk.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:406",
-         "launches": launches["B4"],
+         "launches": launches["B4"], "main_path_ms": path_ms["B4"],
          "max_abs_err": max(v["walk_err"] for v in b34.values()),
          "ms": cam["walk_ms"], "plain_ms": cam["walk_plain_ms"],
          "bound_ms": cam["b4"][0], "bound_by": cam["b4"][1],
@@ -783,4 +902,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(kernels_only="--kernels" in sys.argv[1:]))

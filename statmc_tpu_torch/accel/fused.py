@@ -8,13 +8,17 @@ plane equation gives t
     w_k = edge_k . [d, o x d, 0, 0],   num/den = plane . [d, o, 1, 0].
 
 ``FusedTris.from_tris`` (host numpy, copied from the JAX package) packs
-the rows in 256-triangle tiles.  ``intersect_tiles`` is the wrapper of
-the CUDA kernel ``csrc/fused_intersect.cu``; ``intersect_plain`` beside
-it is the same function in plain PyTorch, used for tensors on the CPU
-and as the kernel's reference on the card.  Both evaluate each 8-term dot as
-the same fused multiply-add chain, which is also how the JAX package's
-CPU dot rounds, so all three agree bit for bit.  The TPU kernel's per-tile AABB cull and lane
-compaction are not ported: both were exact, so results are unchanged.
+the rows in 256-triangle tiles; ``to_device`` adds ``packed``, the same
+coefficients without the columns the layout leaves zero, as 128-triangle
+subtiles (``accel/plucker.py``), which is what the kernel reads.
+``intersect_tiles`` is the wrapper of the CUDA kernel
+``csrc/fused_intersect.cu``; ``intersect_plain`` beside it is the same
+function in plain PyTorch, used for tensors on the CPU and as the
+kernel's reference on the card.  Both evaluate each dot as the same
+fused multiply-add chain over its non-zero columns, which is also how
+the JAX package's CPU dot rounds, so all three agree bit for bit on
+finite rays.  The TPU kernel's per-tile AABB cull and lane compaction
+are not ported: both were exact, so results are unchanged.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
+from . import plucker
 
 TRI_TILE = 256  # triangles per tile
 FUSED_MAX_TRIS = 16384  # the fused path's cap; larger scenes are two-level
@@ -57,6 +62,8 @@ class FusedTris(NamedTuple):
     tile_bounds: [Ntt, 8] per-tile AABB (kept for layout parity).
     perm:        [Ntt*TRI_TILE] packed id -> original id, or None when
                  the input was already Morton-ordered.
+    packed:      [2*Ntt, 25, 128] the non-zero coefficient rows as
+                 subtiles (plucker.pack_fused); set by to_device.
     """
 
     edge_table: Any
@@ -64,6 +71,7 @@ class FusedTris(NamedTuple):
     tile_bounds: Any
     perm: Any
     n_tris: int
+    packed: Any = None
 
     @staticmethod
     def from_tris(p0, e1, e2) -> "FusedTris":
@@ -126,10 +134,11 @@ class FusedTris(NamedTuple):
         def t(x):
             return None if x is None else torch.tensor(x, device=device)
 
-        return self._replace(edge_table=t(self.edge_table),
-                             plane_table=t(self.plane_table),
+        edge, plane = t(self.edge_table), t(self.plane_table)
+        return self._replace(edge_table=edge, plane_table=plane,
                              tile_bounds=t(self.tile_bounds),
-                             perm=t(self.perm))
+                             perm=t(self.perm),
+                             packed=plucker.pack_fused(edge, plane))
 
 
 def ray_features(o, d):
@@ -143,18 +152,12 @@ def ray_features(o, d):
     return ray_e, ray_p
 
 
-def _dot8(rows, ray):
-    """rows [N, 8] x ray [R, 8] -> [N, R] as a fused multiply-add chain in
-    column order, acc = fma(rows[c], ray[c], acc) from acc = 0: the
-    kernel's order, and the rounding of the JAX package's CPU dot.  Each
-    product is exact in float64 (48 bits), and the float64 sum rounds to
-    the fused float32 result except on an exact float32 tie."""
-    acc = torch.zeros((rows.shape[0], ray.shape[0]), dtype=torch.float64,
-                      device=ray.device)
-    for c in range(_K):
-        acc = (rows[:, None, c].double() * ray[None, :, c].double()
-               + acc).float().double()
-    return acc.float()
+def _dot8(rows, ray, lo: int, hi: int):
+    """rows [N, 8] x ray [R, 8] -> [N, R] over columns lo:hi, the columns
+    the table layout leaves non-zero in `rows`, as a fused multiply-add
+    chain in column order from 0 (plucker.chain): the kernel's order, and
+    the rounding of the JAX package's CPU dot."""
+    return plucker.chain(rows[:, lo:hi].T, ray[:, lo:hi].T)
 
 
 def intersect_plain(edge_table, plane_table, raye, rayp, t_max):
@@ -168,9 +171,9 @@ def intersect_plain(edge_table, plane_table, raye, rayp, t_max):
     iota = torch.arange(TRI_TILE, dtype=torch.int32, device=dev)[:, None]
     big = torch.tensor(2 ** 30, dtype=torch.int32, device=dev)
     for j in range(edge_table.shape[0]):
-        w0, w1, w2 = (_dot8(edge_table[j, k], raye) for k in range(3))
-        num = _dot8(plane_table[j, 0], rayp)
-        den = _dot8(plane_table[j, 1], rayp)
+        w0, w1, w2 = (_dot8(edge_table[j, k], raye, 0, 6) for k in range(3))
+        num = _dot8(plane_table[j, 0], rayp, 3, 7)
+        den = _dot8(plane_table[j, 1], rayp, 0, 3)
         inside = (((w0 >= 0) & (w1 >= 0) & (w2 >= 0))
                   | ((w0 <= 0) & (w1 <= 0) & (w2 <= 0)))
         safe = torch.abs(den) > 1e-12
@@ -184,19 +187,33 @@ def intersect_plain(edge_table, plane_table, raye, rayp, t_max):
     return best_t, best_id
 
 
-def intersect_tiles(edge_table, plane_table, raye, rayp, t_max):
+def intersect_tiles(edge_table, plane_table, raye, rayp, t_max, packed=None,
+                    n_tris=None):
     """Kernel B1 wrapper: same contract as `intersect_plain`.  CPU tensors
     take the plain version; CUDA tensors launch the kernel, and
-    `intersect_tiles.launches` counts the launches."""
+    `intersect_tiles.launches` counts the launches.  The kernel reads
+    `packed` (FusedTris.packed); a caller that holds only the two tables
+    leaves it None and it is packed from them here.  n_tris
+    (FusedTris.n_tris) says that the rows from n_tris on are padding, all
+    zero, which the kernel then does not walk; None: every row is
+    tested."""
     if not raye.is_cuda:
         return intersect_plain(edge_table, plane_table, raye, rayp, t_max)
     R = raye.shape[0]
     ntt = edge_table.shape[0]
+    nsub = ntt * (TRI_TILE // plucker.ST)
+    if packed is None:
+        packed = plucker.pack_fused(edge_table, plane_table)
+    if n_tris is None:
+        n_tris = ntt * TRI_TILE
+    if not 0 <= n_tris <= ntt * TRI_TILE:
+        raise ValueError(f"intersect_tiles: n_tris {n_tris} for {ntt} tiles")
     for name, x, shape in (
             ("edge_table", edge_table, (ntt, 3, TRI_TILE, _K)),
             ("plane_table", plane_table, (ntt, 2, TRI_TILE, _K)),
             ("raye", raye, (R, _K)), ("rayp", rayp, (R, _K)),
-            ("t_max", t_max, (R,))):
+            ("t_max", t_max, (R,)),
+            ("packed", packed, (nsub, plucker.PACKED_ROWS, plucker.ST))):
         if (not x.is_cuda or x.device != raye.device
                 or x.dtype != torch.float32 or tuple(x.shape) != shape
                 or not x.is_contiguous()):
@@ -210,7 +227,7 @@ def intersect_tiles(edge_table, plane_table, raye, rayp, t_max):
     stream = torch.cuda.current_stream(raye.device).cuda_stream
     rc = lib.statmc_fused_intersect(
         raye.data_ptr(), rayp.data_ptr(), t_max.data_ptr(),
-        edge_table.data_ptr(), plane_table.data_ptr(), R, ntt,
+        packed.data_ptr(), R, nsub, n_tris,
         t_out.data_ptr(), id_out.data_ptr(), ctypes.c_void_p(stream))
     cuda_build.check(rc, "statmc_fused_intersect")
     intersect_tiles.launches += 1
@@ -226,7 +243,7 @@ def intersect_fused(ft: FusedTris, o, d, t_max):
     raye, rayp = ray_features(o, d)
     t, idx = intersect_tiles(ft.edge_table, ft.plane_table,
                              raye.contiguous(), rayp.contiguous(),
-                             t_max.contiguous())
+                             t_max.contiguous(), ft.packed, ft.n_tris)
     if ft.perm is not None:
         idx = torch.where(idx >= 0, ft.perm[torch.clamp(idx, min=0).long()],
                           -1)

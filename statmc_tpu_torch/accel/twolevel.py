@@ -22,7 +22,9 @@ to FINE_MAX_TRIS, else one).  One intersect call:
    submask lets through.  Ties keep the smallest packed id (strict <
    in ascending id order).
 
-``TwoLevelTris.from_tris`` is host numpy copied from the JAX package.
+``TwoLevelTris.from_tris`` is host numpy copied from the JAX package;
+``to_device`` adds ``packed``, the table without the rows its layout
+leaves zero (``accel/plucker.py``), which is what B4 reads.
 ``cull``/``walk`` are the kernel wrappers; ``cull_plain``/``walk_plain``
 beside them are the same functions in plain PyTorch, used for tensors on
 the CPU and as the kernels' references on the card.
@@ -36,20 +38,15 @@ import numpy as np
 import torch
 
 from .. import cuda_build
+from . import plucker
 from .fused import _morton
 
-ST = 128        # triangles per subtile (walk granularity)
+ST = plucker.ST  # triangles per subtile (walk granularity): 128
 STF = 32        # triangles per fine subgroup (cull/gating granularity)
 RT_WALK = 512   # rays per block (cull/worklist granularity)
 MAXS = 384      # worklist slots per block before the dense walk
 FINE_MAX_TRIS = 300_000  # beyond: cull cost is rays*n_fine, gate off
 _NCOLS = 5 * ST  # table columns: [w0|w1|w2|num|den] * ST
-# Feature rows each form reads; from_tris leaves every other row of the
-# form's columns zero, and the ray features are zero in rows 10:16.  A
-# zero row adds fma(0, x, acc) = acc up to the sign of a zero, which no
-# comparison of the epilogue reads, so both the kernel and the plain
-# version skip them.
-_FORM_ROWS = ((0, 6), (0, 6), (0, 6), (6, 10), (0, 3))
 _ROWS = 10  # feature rows that can be non-zero
 _CULL_CHUNK = 1 << 25  # (ray, subgroup) pairs per plain-cull step
 _stage = torch.profiler.record_function  # a named range in profiler traces
@@ -64,6 +61,8 @@ class TwoLevelTris(NamedTuple):
     bounds_planar: [8, nfp] the same transposed and lane-padded (the TPU
             cull's layout, kept for table parity).
     perm:   packed id -> original id, or None when already Morton-ordered.
+    packed: [nst, 25, ST] the rows of `table` that can be non-zero
+            (plucker.pack_subtiles); set by to_device.
     """
     table: Any
     bounds: Any
@@ -74,6 +73,7 @@ class TwoLevelTris(NamedTuple):
     fsub: int
     world_lo: Any  # [3] scene AABB (ray-sort quantization)
     world_ext: Any  # [3]
+    packed: Any = None
 
     @staticmethod
     def from_tris(p0, e1, e2, fsub: int | None = None) -> "TwoLevelTris":
@@ -153,10 +153,12 @@ class TwoLevelTris(NamedTuple):
             return None if x is None else torch.tensor(
                 np.asarray(x), device=device)
 
-        return self._replace(table=t(self.table), bounds=t(self.bounds),
+        table = t(self.table)
+        return self._replace(table=table, bounds=t(self.bounds),
                              bounds_planar=t(self.bounds_planar),
                              perm=t(self.perm), world_lo=t(self.world_lo),
-                             world_ext=t(self.world_ext))
+                             world_ext=t(self.world_ext),
+                             packed=plucker.pack_subtiles(table))
 
 
 def ray_features16(o, d):
@@ -362,18 +364,6 @@ def worklists(tl, vote_f):
 # B4: the worklist walk.
 
 
-def _chain(tab_rows, feat_rows):
-    """sum_k tab[k] * feat[k] as a fused multiply-add chain in row order
-    from 0, the kernel's __fmaf_rn chain: each product is exact in float64
-    and each step rounds to float32 (one rounding but for exact float32
-    ties).  tab_rows [G, K, C], feat_rows [G, K, R] -> [G, C, R]."""
-    acc = torch.zeros((), dtype=torch.float64, device=feat_rows.device)
-    for k in range(tab_rows.shape[1]):
-        acc = (tab_rows[:, k, :, None].double()
-               * feat_rows[:, k, None, :].double() + acc).float().double()
-    return acc.float()
-
-
 def walk_plain(table, order, n_eff, mask, feat, t_max, fsub: int):
     """Plain PyTorch version of kernel B4.  table [nst, 16, 5*ST], order
     [G, MAXS] i32, n_eff [G] i32, mask [G, nw] i32, feat [G, 16, RT_WALK],
@@ -403,8 +393,8 @@ def walk_plain(table, order, n_eff, mask, feat, t_max, fsub: int):
         tid = torch.where(dense, k, order[:, min(k, MAXS - 1)].long())
         tid = torch.where(active, tid, 0)
         tab = table[tid]  # [G, 16, 5*ST]
-        f = [_chain(tab[:, a:b, i * ST:(i + 1) * ST], fr[:, a:b])
-             for i, (a, b) in enumerate(_FORM_ROWS)]  # 5 x [G, ST, Rl]
+        f = [plucker.chain(tab[:, a:b, i * ST:(i + 1) * ST], fr[:, a:b])
+             for i, (a, b) in enumerate(plucker.FORM_ROWS)]  # 5 x [G, ST, Rl]
         w0, w1, w2, num, den = (x.reshape(G, fsub, stf, -1) for x in f)
         wmin = torch.minimum(torch.minimum(w0, w1), w2)
         wmax = torch.maximum(torch.maximum(w0, w1), w2)
@@ -433,19 +423,24 @@ def walk_plain(table, order, n_eff, mask, feat, t_max, fsub: int):
     return best_t, best_id
 
 
-def walk(table, order, n_eff, mask, feat, t_max, fsub: int):
+def walk(table, order, n_eff, mask, feat, t_max, fsub: int, packed=None):
     """Kernel B4 wrapper: same contract as `walk_plain`.  CPU tensors take
     the plain version; CUDA tensors launch the kernel, and `walk.launches`
-    counts the launches."""
+    counts the launches.  The kernel reads `packed` (TwoLevelTris.packed);
+    a caller that holds only `table` leaves it None and it is packed
+    here."""
     if not t_max.is_cuda:
         return walk_plain(table, order, n_eff, mask, feat, t_max, fsub)
     G = t_max.shape[0]
     nst, nw = table.shape[0], mask.shape[1]
-    if ST % fsub or (fsub > 1 and nw * 32 < nst * fsub):
+    if 32 % fsub or (fsub > 1 and nw * 32 < nst * fsub):
         raise ValueError(f"walk: fsub {fsub} with {nw} mask words for "
                          f"{nst} subtiles")
+    if packed is None:
+        packed = plucker.pack_subtiles(table)
     _check("walk", t_max, (
         ("table", table, (nst, 16, _NCOLS), torch.float32),
+        ("packed", packed, (nst, plucker.PACKED_ROWS, ST), torch.float32),
         ("order", order, (G, MAXS), torch.int32),
         ("n_eff", n_eff, (G,), torch.int32),
         ("mask", mask, (G, nw), torch.int32),
@@ -454,7 +449,7 @@ def walk(table, order, n_eff, mask, feat, t_max, fsub: int):
     t_out = torch.empty((G, RT_WALK), dtype=torch.float32, device=t_max.device)
     id_out = torch.empty((G, RT_WALK), dtype=torch.int32, device=t_max.device)
     rc = cuda_build.library().statmc_twolevel_walk(
-        table.data_ptr(), order.data_ptr(), n_eff.data_ptr(),
+        packed.data_ptr(), order.data_ptr(), n_eff.data_ptr(),
         mask.data_ptr(), nw, feat.data_ptr(), t_max.data_ptr(), G, nst,
         fsub, t_out.data_ptr(), id_out.data_ptr(), _stream(t_max))
     cuda_build.check(rc, "statmc_twolevel_walk")
@@ -499,7 +494,7 @@ def intersect_twolevel(tl: TwoLevelTris, o, d, t_max, sort: bool = True):
         feat = block_features(o_p, d_p)
     with _stage("twolevel.walk"):
         t, idx = walk(tl.table, order, n_eff, mask, feat,
-                      tm_p.reshape(-1, RT_WALK), tl.fsub)
+                      tm_p.reshape(-1, RT_WALK), tl.fsub, tl.packed)
     with _stage("twolevel.unsort"):
         t, idx = t.reshape(-1)[:R], idx.reshape(-1)[:R]
         if tl.perm is not None:

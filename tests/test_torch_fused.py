@@ -10,6 +10,8 @@ import torch
 from statmc_tpu.accel import fused as JF
 from statmc_tpu_torch import convert
 from statmc_tpu_torch.accel import fused as TF
+from statmc_tpu_torch.accel import plucker as PL
+from statmc_tpu_torch.accel import twolevel as TT
 
 torch.set_num_threads(2)
 
@@ -94,3 +96,111 @@ def test_intersect_fused_remaps_and_cuts():
     np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
     np.testing.assert_array_equal(thit.numpy(), np.asarray(jhit))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_tris,seed", [(500, 5), (256, 6), (1070, 7)])
+def test_packed_table_keeps_every_nonzero_coefficient(n_tris, seed):
+    """to_device's packed [2*Ntt, 25, 128] table, which kernel B1 reads:
+    the edge and plane tables rebuilt from it equal the originals, so it
+    reproduces every non-zero coefficient exactly and drops only zeros;
+    ids map as tile * 256 + k = subtile * 128 + column."""
+    tris, *_ = _scene(np.random.default_rng(seed), n_tris=n_tris)
+    tf = TF.FusedTris.from_tris(*tris).to_device("cpu")
+    ntt = tf.edge_table.shape[0]
+    pk = tf.packed
+    assert pk.shape == (2 * ntt, 25, 128) and pk.is_contiguous()
+    cols = pk.reshape(ntt, 2, 25, 128).permute(0, 2, 1, 3).reshape(
+        ntt, 25, TF.TRI_TILE)  # [tile, packed row, triangle of the tile]
+    edge = torch.zeros_like(tf.edge_table)
+    plane = torch.zeros_like(tf.plane_table)
+    for e in range(3):
+        edge[:, e, :, 0:6] = cols[:, 6 * e:6 * e + 6].transpose(1, 2)
+    plane[:, 0, :, 3:7] = cols[:, 18:22].transpose(1, 2)
+    plane[:, 1, :, 0:3] = cols[:, 22:25].transpose(1, 2)
+    assert torch.equal(edge, tf.edge_table)
+    assert torch.equal(plane, tf.plane_table)
+    assert int((pk != 0).sum()) == int((tf.edge_table != 0).sum()) + int(
+        (tf.plane_table != 0).sum()) > 20 * n_tris
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_walk_plain_over_fused_subtiles_equals_intersect_plain(seed):
+    """B1's triangles laid out as B4's subtiles (every subtile in the
+    worklist, fsub = 1): walk_plain gives intersect_plain's (t, id) bit
+    for bit, which is what lets the two kernels share one device core."""
+    tris, o, d, t_max = _scene(np.random.default_rng(seed), n_rays=1024)
+    t_max[3::8] = np.inf  # the first tested triangle's 1e30 wins
+    tf = TF.FusedTris.from_tris(*tris).to_device("cpu")
+    raye, rayp = TF.ray_features(torch.as_tensor(o), torch.as_tensor(d))
+    t_f, id_f = TF.intersect_plain(tf.edge_table, tf.plane_table, raye, rayp,
+                                   torch.as_tensor(t_max))
+    table = PL.fused_subtiles(tf.edge_table, tf.plane_table)
+    assert torch.equal(PL.pack_subtiles(table), tf.packed)
+    nst, G = table.shape[0], 1024 // TT.RT_WALK
+    order = torch.arange(TT.MAXS, dtype=torch.int32).repeat(G, 1)
+    feat = TT.block_features(torch.as_tensor(o), torch.as_tensor(d))
+    t_w, id_w = TT.walk_plain(
+        table, order, torch.full((G,), nst, dtype=torch.int32),
+        torch.zeros((G, 1), dtype=torch.int32), feat,
+        torch.as_tensor(t_max).reshape(G, TT.RT_WALK), 1)
+    np.testing.assert_array_equal(id_w.reshape(-1).numpy(), id_f.numpy())
+    np.testing.assert_array_equal(t_w.reshape(-1).numpy().view(np.int32),
+                                  t_f.numpy().view(np.int32))
+    assert (id_f >= 0).sum() > 100 and (id_f[3::8] >= 0).all()
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_plain_b1_bits_equal_jax_ref(seed):
+    """With the zero columns skipped, intersect_plain still evaluates the
+    chain of XLA's CPU dot over the non-zero ones: ids equal and t equal
+    as bits on every ray, against _intersect_ref."""
+    tris, o, d, t_max = _scene(np.random.default_rng(seed))
+    jf = JF.FusedTris.from_tris(*tris)
+    tf = convert.fused_tris(jf)
+    raye_j, rayp_j, _ = JF.ray_features(jnp.asarray(o), jnp.asarray(d))
+    t_ref, id_ref = (np.asarray(x) for x in JF._intersect_ref(
+        jf, raye_j, rayp_j, jnp.asarray(t_max)))
+    raye, rayp = TF.ray_features(torch.as_tensor(o), torch.as_tensor(d))
+    t_pl, id_pl = TF.intersect_plain(tf.edge_table, tf.plane_table, raye,
+                                     rayp, torch.as_tensor(t_max))
+    np.testing.assert_array_equal(id_pl.numpy(), id_ref)
+    np.testing.assert_array_equal(t_pl.numpy().view(np.int32),
+                                  t_ref.view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["inf_t_max", "nan_t_max", "inf_origin",
+                                  "nan_origin"])
+def test_plain_b1_special_rays_match_jax_ref(case):
+    """Rays a caller should not send give what the JAX reference gives:
+    t_max = +inf lets the first tested triangle's 1e30 win (t = 1e30 with
+    its id unless a real hit is closer); a NaN t_max, a NaN origin and an
+    infinite origin never hit and keep t_max."""
+    tris, o, d, t_max = _scene(np.random.default_rng(8))
+    t_max[:] = np.where(np.arange(len(t_max)) % 2 == 0, 1e30, 7.0)
+    if case == "inf_t_max":
+        t_max[:] = np.inf
+    elif case == "nan_t_max":
+        t_max[::2] = np.nan
+    elif case == "inf_origin":
+        o[::2, 0] = np.inf
+        o[1::4, 2] = -np.inf
+    else:
+        o[::2, 1] = np.nan
+    jf = JF.FusedTris.from_tris(*tris)
+    tf = convert.fused_tris(jf)
+    raye_j, rayp_j, _ = JF.ray_features(jnp.asarray(o), jnp.asarray(d))
+    t_ref, id_ref = (np.asarray(x) for x in JF._intersect_ref(
+        jf, raye_j, rayp_j, jnp.asarray(t_max)))
+    raye, rayp = TF.ray_features(torch.as_tensor(o), torch.as_tensor(d))
+    t_pl, id_pl = TF.intersect_tiles(tf.edge_table, tf.plane_table, raye,
+                                     rayp, torch.as_tensor(t_max))
+    np.testing.assert_array_equal(id_pl.numpy(), id_ref)
+    np.testing.assert_array_equal(t_pl.numpy().view(np.int32),
+                                  t_ref.view(np.int32))
+    if case == "inf_t_max":
+        assert (id_ref >= 0).all() and (t_ref <= 1e30).all()
+        assert (t_ref == np.float32(1e30)).sum() > 100
+    elif case == "nan_t_max":
+        assert (id_ref[::2] == -1).all() and np.isnan(t_ref[::2]).all()
+    else:
+        assert (id_ref[::2] == -1).all() and (id_ref >= 0).sum() > 20

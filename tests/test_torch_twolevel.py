@@ -28,6 +28,7 @@ from statmc_tpu.testscenes import scene_text, terrain_scene_text
 import statmc_tpu_torch.driver as TD
 from statmc_tpu_torch import convert
 from statmc_tpu_torch.accel import fused as TF
+from statmc_tpu_torch.accel import plucker as PL
 from statmc_tpu_torch.accel import twolevel as TT
 from statmc_tpu_torch.render import camera as TC
 from statmc_tpu_torch.render import integrator as TI
@@ -429,3 +430,60 @@ def test_terrain_end_to_end_jax_camera(prepared, jax_render, monkeypatch):
 
     monkeypatch.setattr(TC, "generate_rays", generate_rays)
     _hold_to_jax(jax_render, rt, 0.985)
+
+
+@pytest.mark.parametrize("T,fsub,seed", [(2000, None, 0), (700, 1, 1),
+                                         (129, None, 2)])
+def test_packed_table_keeps_every_nonzero_coefficient(T, fsub, seed):
+    """to_device's packed [nst, 25, 128] table, which kernel B4 reads: the
+    K16 table rebuilt from it equals `table`, so it reproduces every
+    non-zero coefficient exactly and drops only zeros."""
+    tt = TT.TwoLevelTris.from_tris(*_tris(T, seed), fsub=fsub).to_device(
+        "cpu")
+    pk = tt.packed
+    assert pk.shape == (tt.n_sub, PL.PACKED_ROWS, TT.ST)
+    assert pk.is_contiguous()
+    back = torch.zeros_like(tt.table)
+    row = 0
+    for i, (a, b) in enumerate(PL.FORM_ROWS):
+        back[:, a:b, i * TT.ST:(i + 1) * TT.ST] = pk[:, row:row + b - a]
+        row += b - a
+    assert row == 25 and torch.equal(back, tt.table)
+    assert int((pk != 0).sum()) == int((tt.table != 0).sum()) > 20 * T
+
+
+@pytest.mark.parametrize("case", ["inf_t_max", "nan_t_max", "inf_origin",
+                                  "nan_origin"])
+def test_plain_walk_special_rays_match_walk_xla(case):
+    """Rays a caller should not send, on the JAX package's worklists
+    (fsub = 1, so no subgroup is gated): t_max = +inf lets the first
+    walked triangle's 1e30 win; a NaN t_max, a NaN origin and an infinite
+    origin never hit and keep t_max.  (t, id) equal _walk_xla's bit for
+    bit."""
+    jt = JT.TwoLevelTris.from_tris(*_tris(700, 5, spread=4.0, size=1.0),
+                                   fsub=1)
+    tt = convert.twolevel_tris(jt)
+    o, d, t_max = _rays(2 * JT.RT_WALK, 6, spread=5.0)
+    if case == "inf_t_max":
+        t_max[:] = np.inf
+    elif case == "nan_t_max":
+        t_max[::2] = np.nan
+    elif case == "inf_origin":
+        o[::2, 0] = np.inf
+        o[1::4, 2] = -np.inf
+    else:
+        o[::2, 1] = np.nan
+    args = _jax_walk_inputs(jt, o, d, t_max)
+    jt_, jid = (np.asarray(x) for x in JT._walk_xla(jt, *args))
+    tt_, tid = TT.walk(tt.table, *(_t(x) for x in args), tt.fsub)
+    np.testing.assert_array_equal(tid.numpy(), jid)
+    np.testing.assert_array_equal(tt_.numpy().view(np.int32),
+                                  jt_.view(np.int32))
+    flat_id, flat_t = jid.reshape(-1), jt_.reshape(-1)
+    if case == "inf_t_max":
+        assert (flat_t == np.float32(1e30)).sum() > 100
+        assert (flat_id[flat_t == np.float32(1e30)] >= 0).all()
+    elif case == "nan_t_max":
+        assert (flat_id[::2] == -1).all() and np.isnan(flat_t[::2]).all()
+    else:
+        assert (flat_id[::2] == -1).all() and (flat_id >= 0).sum() > 20
