@@ -2,9 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (statmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --kernels  # phases 1-4 and 9 only: the kernels
+    python3 chip_smoke.py --kernels  # phases 1-4 and 11 only: the kernels
                                      # against their plain versions, no
                                      # main path, no result lines
+    python3 chip_smoke.py --other DIR  # also time B2 and B3 built from the
+                                       # tree DIR (say, the parent commit
+                                       # unpacked by git archive), in
+                                       # turns with this tree's, on the
+                                       # same inputs
 
 Phases, one line each; any failure raises, so the exit code is non-zero
 and the final line is not printed:
@@ -22,28 +27,38 @@ and the final line is not printed:
    staircase proxy at 1280x720, maxdepth 8, filter radius 20, albedo +
    normal G-buffers, 4 spp, with B1's and B2's launch counts set to 0
    just before it and read just after;
-6. the same call on a small staircase proxy (32x24) on the card and
+6. kernel B2 against its plain version on the render's own inputs: the
+   arguments iteration 2's denoise passes to run_filter, captured by
+   running that denoise once more; normalized and not, with the
+   accepted share and the bound at it;
+7. the same call as 5 on a small staircase proxy (32x24) on the card and
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
-7. the terrain main path (the large-scene, two-level path):
+8. the terrain main path (the large-scene, two-level path):
    ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
    proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
    set to 0 just before it and read just after;
-8. the staircase's iteration 2 once more under torch.profiler (device
+9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's and B2's device time per iteration; then one more
    terrain iteration under torch.profiler: device time by
    kernel (B3's and B4's per iteration) and by stage of the two-level
    intersect call (partition, slab rays, B3, worklists, features, B4,
    unsort), and the device's busy share of the unprofiled iteration;
-9. kernels B3 (subgroup cull) and B4 (worklist walk) against their plain
-   versions on the terrain's table: its 1280x720 camera rays (sorted, as
-   the main path sorts them) and 2^20 random rays grazing the terrain
-   floor (unsorted, a third each unbounded, finite and dead, so that
-   blocks overflow the worklist and walk densely), compared on 64 blocks
-   of each (the kernels are timed on all blocks and on those 64);
-10. a small terrain proxy (32x24, 19,554 triangles, still two-level) on
+   the rays of that iteration's B3 calls are kept;
+10. kernel B3 on those rays: votes against the two-stage plain cull on
+    every call, its time over all calls, and the reject tests, per-ray
+    tests and surviving boxes per block that its design spends there;
+11. kernels B3 (subgroup cull) and B4 (worklist walk) against their plain
+    versions on the terrain's table: its 1280x720 camera rays (sorted, as
+    the main path sorts them) and 2^20 random rays grazing the terrain
+    floor (unsorted, a third each unbounded, finite and dead, so that
+    blocks overflow the worklist and walk densely); B3 compared on every
+    block of both, with its reject and per-ray tests, surviving boxes per
+    block and both bounds (the design's count and the flat sweep's); B4
+    compared on 64 blocks of each (timed on all and on those 64);
+12. a small terrain proxy (32x24, 19,554 triangles, still two-level) on
     the card and on the CPU: the buffers must agree;
-11. one JSON line of per-kernel results, then the device line.
+13. one JSON line of per-kernel results, then the device line.
 
 Kernel times are CUDA-event medians of 10 runs after 3 warm-ups; a plain
 version runs once, and its time is that one CUDA-event reading.  Each
@@ -83,11 +98,14 @@ B2_OPS_REJECT = 3 * 5  # (pixel, neighbour): the 3-channel acceptance test
 # (~8), valid and wsum (2) and the CF = 3 sums (2 each).
 B2_OPS_ACCEPT = B2_OPS_REJECT + 3 + 6 * 4 + 8 + 2 + 3 * 2
 B3_OPS = 20  # (ray, subgroup box) slab test
+# (sub-block, box) reject of the redesigned B3: per axis 4 subtractions,
+# 8 products, 14 min/max and 2 merges; then the product and 2 compares.
+B3_REJECT_OPS = 3 * (4 + 8 + 14 + 2) + 3
 B4_OPS = B1_OPS  # (ray, triangle): the same core as B1
 # The kernels' names in a profiler trace.
 KERNEL_NAMES = {"B1": "fused_intersect", "B2": "stat_filter",
                 "B3": "twolevel_cull", "B4": "twolevel_walk"}
-SUBSET = 64  # blocks of 512 rays on which B3/B4 meet their plain versions
+SUBSET = 64  # blocks of 512 rays on which B4 meets its plain version
 # The small reference render (phase 6) and the share of its pixels that
 # must agree between the card and the CPU in every buffer (0.9961 at
 # worst on an NVIDIA H100 80GB HBM3 at 700 W, with equal ray totals).
@@ -147,6 +165,56 @@ def _once_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _other_library(tree):
+    """Kernels B2 and B3 built from another tree's sources
+    (`tree`/statmc_tpu_torch/csrc/stat_filter.cu and twolevel_cull.cu, with
+    this tree's nvcc flags) into build/other/, loaded with ctypes."""
+    import ctypes
+
+    from statmc_tpu_torch import cuda_build
+
+    csrc = os.path.join(os.path.abspath(tree), "statmc_tpu_torch", "csrc")
+    out = os.path.join(REPO, "build", "other")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libstatmc_other.so")
+    cuda_build._build([os.path.join(csrc, n) for n in
+                       ("stat_filter.cu", "twolevel_cull.cu")], so)
+    lib = ctypes.CDLL(so)
+    for name in ("statmc_stat_filter", "statmc_twolevel_cull"):
+        fn = getattr(lib, name)
+        fn.argtypes = cuda_build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _ab_ms(fn, other):
+    """(this tree's ms, the other tree's ms) of `fn`, a call of the kernel
+    wrappers: medians in turns this, other, other, this, each pair
+    averaged; the other tree's kernels stand in for this tree's by taking
+    the place of the loaded library.  (None, None) without another tree."""
+    if other is None:
+        return None, None
+    from statmc_tpu_torch import cuda_build
+
+    own = cuda_build.library()
+    times = {}
+    for lib in (own, other, other, own):
+        cuda_build._lib = lib
+        try:
+            times.setdefault(id(lib), []).append(_median_ms(fn))
+        finally:
+            cuda_build._lib = own
+    return (statistics.mean(times[id(own)]),
+            statistics.mean(times[id(other)]))
+
+
+def _ab_text(ab):
+    if ab[0] is None:
+        return ""
+    return (f"; in turns with the other tree: this {ab[0]:.3f} ms, other "
+            f"{ab[1]:.3f} ms")
 
 
 def _bound(ops, nbytes):
@@ -280,51 +348,66 @@ def _filter_inputs(rng):
             torch.ones((H, W), device="cuda"))
 
 
-def phase_b2(rng, card):
+def phase_b2(rng, card, other):
     """Kernel B2 against its plain version at the production shape."""
+    mc, d2, fm, gb, valid = _filter_inputs(rng)
+    gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
+    ds = -0.5 / 10.0 ** 2
+    return _b2_check("B2", card, other, (mc, d2, fm, gb, valid, RADIUS, ds,
+                                         gf), min_wsum=1.0 - 1e-5)
+
+
+def _b2_check(name, card, other, args, min_wsum=None):
+    """B2 against its plain version on `args` (run_filter's arguments
+    without normalize), normalized and not: max |dout|, times, the
+    in-image pairs and the accepted share, and the bound at that share.
+    Returns {normalize: results}."""
     import torch
 
     from statmc_tpu_torch.denoise import filter_cuda as FC
 
-    mc, d2, fm, gb, valid = _filter_inputs(rng)
-    pairs, accepted = _filter_pairs(mc, d2)
-    gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
-    ds = -0.5 / 10.0 ** 2
+    mc, d2 = args[0], args[1]
+    H, W, _ = mc.shape
+    pairs, accepted = _filter_pairs(mc, d2, args[5])
     out = {}
     for normalize in (True, False):
-        args = (mc, d2, fm, gb, valid, RADIUS, ds, gf, normalize)
-        o_k, w_k = FC.run_filter(*args)
-        (o_p, w_p), plain_ms = _once_ms(lambda: FC.run_filter_plain(*args))
+        args_n = (*args, normalize)
+        o_k, w_k = FC.run_filter(*args_n)
+        (o_p, w_p), plain_ms = _once_ms(lambda: FC.run_filter_plain(*args_n))
         # The kernel sums the window in the plain version's order with the
         # same rounding per step; expf and the library exp may still
         # differ in the last bit, hence rtol 1e-4 / atol 1e-6.
         torch.testing.assert_close(o_k, o_p, rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(w_k, w_p, rtol=1e-4, atol=1e-6)
-        if float(w_k.min()) < 1.0 - 1e-5:
-            raise AssertionError(f"B2: min wsum {float(w_k.min())}")
+        if min_wsum is not None and float(w_k.min()) < min_wsum:
+            raise AssertionError(f"{name}: min wsum {float(w_k.min())}")
         err = float((o_k - o_p).abs().max())
-        ms = _median_ms(lambda: FC.run_filter(*args))
+        ms = _median_ms(lambda: FC.run_filter(*args_n))
+        ab = _ab_ms(lambda: FC.run_filter(*args_n), other)
         bound_ms, bound_by = _bound(
             pairs * B2_OPS_REJECT + accepted * (B2_OPS_ACCEPT - B2_OPS_REJECT),
-            _nbytes(mc, d2, fm, gb, valid, o_k, w_k))
-        print(f"B2 normalize={normalize}: {WIDTH}x{HEIGHT} r={RADIUS}, max "
+            _nbytes(*args[:5], o_k, w_k))
+        print(f"{name} normalize={normalize}: {W}x{H} C={mc.shape[2]} "
+              f"CF={args[2].shape[2]} G={args[3].shape[2]} r={args[5]}, max "
               f"|dout| {err:.3e}, min wsum {float(w_k.min()):.6f}; "
               f"{pairs} in-image pairs, {accepted / pairs:.4f} accepted; "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once), bound "
-              f"{bound_ms:.3f} ms ({bound_by}) [{card}]", flush=True)
+              f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.3f} of the "
+              f"kernel's time){_ab_text(ab)} [{card}]", flush=True)
         out[normalize] = dict(ms=ms, plain_ms=plain_ms, err=err,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              accepted=accepted / pairs, ab=ab)
     return out
 
 
-def _filter_pairs(mc, d2):
-    """(in-image (pixel, neighbour) pairs, accepted ones) of the r = RADIUS
-    window: the acceptance test decides which pairs take the weight and
+def _filter_pairs(mc, d2, radius):
+    """(in-image (pixel, neighbour) pairs, accepted ones) of the window of
+    `radius`: the acceptance test decides which pairs take the weight and
     its exponential."""
     H, W, _ = mc.shape
     pairs = accepted = 0
-    for dy in range(-RADIUS, RADIUS + 1):
-        for dx in range(-RADIUS, RADIUS + 1):
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
             ys, yj = slice(max(0, -dy), H - max(0, dy)), slice(
                 max(0, dy), H - max(0, -dy))
             xs, xj = slice(max(0, -dx), W - max(0, dx)), slice(
@@ -380,6 +463,7 @@ def phase_main_path(card):
         torch.cuda.synchronize()
         launches = {"B1": F.intersect_tiles.launches,
                     "B2": FC.run_filter.launches}
+        filter_calls = _capture_filter_inputs(r)
         film = r.film_mean.cpu().numpy()
         film_f = r.film_f.cpu().numpy()
     for name, img in (("film", film), ("film-f", film_f)):
@@ -399,7 +483,41 @@ def phase_main_path(card):
           f"radius {RADIUS}, setup {setup_s:.1f} s, film mean "
           f"{film.mean():.5f}, film-f mean {film_f.mean():.5f}, launches "
           f"{launches}", flush=True)
-    return launches, r, logs[-1]["render_s"]
+    return launches, r, logs[-1]["render_s"], filter_calls
+
+
+def _capture_filter_inputs(r):
+    """The arguments that iteration 2's denoise passes to run_filter
+    (denoise/filter.py), one tuple per call: r._denoise() once more on
+    the moment states and film it filtered, with the module's run_filter
+    wrapped to record them."""
+    from statmc_tpu_torch.denoise import filter as FL
+
+    calls, real = [], FL.run_filter
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    FL.run_filter = record
+    try:
+        r._denoise()
+    finally:
+        FL.run_filter = real
+    return calls
+
+
+def phase_b2_render(card, other, calls):
+    """Kernel B2 against its plain version on the inputs of the staircase
+    render's iteration-2 denoise (each call of it)."""
+    out = None
+    for k, args in enumerate(calls):
+        res = _b2_check(f"B2 render inputs, call {k + 1} of {len(calls)}",
+                        card, other, tuple(args[:8]))
+        out = out or res
+    if out is None:
+        raise AssertionError("B2 render inputs: the denoise made no call")
+    return out
 
 
 def phase_staircase_profile(card, r, render_s):
@@ -603,8 +721,22 @@ def phase_terrain_profile(card, r, render_s):
     device time by kernel (B3, B4, the rest) and by stage of
     intersect_twolevel (its ``twolevel.*`` ranges, summed over the
     iteration's calls), and the device's busy share of the unprofiled
-    iteration (render_s).  Returns {kernel: device ms per iteration}."""
-    log, groups, launches, stages, read_s = _profile_iteration(r, 1)
+    iteration (render_s).  Returns ({kernel: device ms per iteration},
+    the rays of each of the iteration's B3 calls, recorded by wrapping
+    accel/twolevel.py's slab_rays, which makes them)."""
+    from statmc_tpu_torch.accel import twolevel as TT
+
+    cull_rays, real = [], TT.slab_rays
+
+    def record(o, d, t_max):
+        cull_rays.append(real(o, d, t_max))
+        return cull_rays[-1]
+
+    TT.slab_rays = record
+    try:
+        log, groups, launches, stages, read_s = _profile_iteration(r, 1)
+    finally:
+        TT.slab_rays = real
     total = sum(ms for ms, _ in groups.values())
     print(f"terrain profile: iteration 1 again, {log['render_s']:.3f} s "
           f"profiled, trace read in {read_s:.1f} s; "
@@ -633,7 +765,48 @@ def phase_terrain_profile(card, r, render_s):
     if not stages or groups["B3"][1] <= 0 or groups["B4"][1] <= 0:
         raise AssertionError("terrain profile: no two-level stages or "
                              "kernels in the trace")
-    return {k: groups[k][0] for k in ("B3", "B4")}
+    return {k: groups[k][0] for k in ("B3", "B4")}, cull_rays
+
+
+def phase_b3_main_rays(card, bounds, calls, other):
+    """Kernel B3 on the rays of every B3 call of one terrain iteration:
+    its votes against the two-stage plain cull, its time over all the
+    calls one after another, and what the design does there."""
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+
+    def run_all():
+        for rays in calls:
+            TT.cull(bounds, rays)
+
+    ms = _median_ms(run_all, warmup=1, reps=5)
+    ab = _ab_ms(run_all, other)
+    total = dict(reject=0, sweep=0, pairs=0, boxes=0, votes=0)
+    rows = []
+    for k, rays in enumerate(calls):
+        work = _cull_work(bounds, rays)
+        vote = TT.cull(bounds, rays)
+        if not torch.equal(vote, work["vote"]):
+            raise AssertionError(f"B3 main-path call {k}: votes differ on "
+                                 f"{int((vote != work['vote']).sum())} pairs")
+        for key in total:
+            total[key] += work[key]
+        G = rays.shape[0]
+        rows.append((work["sweep"], k, G, int((rays[..., 6] > 0).sum()),
+                     work["boxes"] / G, work["votes"] / G))
+    G = sum(r.shape[0] for r in calls)
+    print(f"B3 main-path rays: {len(calls)} calls, {G} blocks, votes equal "
+          f"to the two-stage plain cull on every call; "
+          f"{_cull_work_text(total, G)}; kernel {ms:.3f} ms over all calls"
+          f"{_ab_text(ab)} [{card}]", flush=True)
+    print("B3 main-path rays, the calls with the most per-ray tests (call, "
+          "blocks, live rays, surviving boxes and votes per block, per-ray "
+          "tests): " + "; ".join(
+              f"{k} {g} {live} {b:.1f} {v:.1f} {t}"
+              for t, k, g, live, b, v in sorted(rows, reverse=True)[:6]),
+          flush=True)
+    return dict(ms=ms, ab=ab, **total)
 
 
 def _cull_tests(bounds, rays):
@@ -658,6 +831,55 @@ def _cull_tests(bounds, rays):
     return total
 
 
+def _cull_work(bounds, rays):
+    """What the redesigned B3 does on these rays, counted with its plain
+    twin (accel/twolevel.py:cull_reject): {reject: one test per non-empty
+    sub-block and box; sweep: per box, the rays of its surviving
+    sub-blocks in the kernel's order (sub-block, then block order) up to
+    the first one that votes, or all of them; pairs: surviving (sub-block,
+    box) pairs; boxes: boxes with a surviving sub-block; votes; vote: the
+    two-stage cull's [G, nf] votes}."""
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+
+    G, RT, nf = rays.shape[0], rays.shape[1], bounds.shape[0]
+    work = dict(reject=0, sweep=0, pairs=0, boxes=0, votes=0)
+    votes = []
+    step = max(1, (1 << 25) // (RT * nf))
+    for g0 in range(0, G, step):
+        r = rays[g0:g0 + step]
+        sub, keep = TT.cull_reject(bounds, r)
+        ns = keep.shape[1]
+        nonempty = torch.nn.functional.one_hot(sub + 1, ns + 1)[
+            ..., 1:].any(1)
+        order = torch.argsort(torch.where(sub >= 0, sub, ns), dim=1, stable=True)
+        s_ord = sub.gather(1, order)[..., None].expand(-1, -1, nf)
+        v = TT.slab_votes(bounds, r).gather(1, order[..., None].expand(
+            -1, -1, nf))
+        swept = keep.gather(1, s_ord.clamp(min=0)) & (s_ord >= 0)
+        hit = swept & v
+        upto = torch.cumsum(swept, 1)
+        first = torch.argmax(hit.to(torch.uint8), 1, keepdim=True)
+        tests = torch.where(hit.any(1), upto.gather(1, first)[:, 0],
+                            upto[:, -1])
+        work["reject"] += int(nonempty.sum()) * nf
+        work["sweep"] += int(tests.sum())
+        work["pairs"] += int(keep.sum())
+        work["boxes"] += int(keep.any(1).sum())
+        votes.append(hit.any(1))
+        work["votes"] += int(votes[-1].sum())
+    work["vote"] = torch.cat(votes) if votes else None
+    return work
+
+
+def _cull_work_text(work, G):
+    return (f"reject tests {work['reject']}, per-ray tests {work['sweep']}; "
+            f"per block {work['boxes'] / G:.1f} boxes survive "
+            f"({work['pairs'] / G:.1f} (sub-block, box) pairs), "
+            f"{work['votes'] / G:.1f} vote")
+
+
 def _pick_blocks(n_eff, G):
     """SUBSET block ids: up to a quarter from the dense-walk blocks, the
     rest spread evenly over all blocks."""
@@ -675,9 +897,10 @@ def _pick_blocks(n_eff, G):
     return torch.unique(torch.cat([take, rest]))
 
 
-def phase_b3_b4(rng, card, setup):
+def phase_b3_b4(rng, card, setup, other):
     """Kernels B3 and B4 against their plain versions on the terrain
-    table, with the camera rays and random rays grazing the floor."""
+    table, with the camera rays and random rays grazing the floor: B3 on
+    every block, B4 on SUBSET blocks."""
     import numpy as np
     import torch
 
@@ -710,10 +933,10 @@ def phase_b3_b4(rng, card, setup):
                             tl.fsub, tl.packed)
         sub = _pick_blocks(n_eff, G)
         vote_p, cull_plain_ms = _once_ms(
-            lambda: TT.cull_plain(tl.bounds, rays[sub]))
-        if not torch.equal(vote_p, vote[sub]):
+            lambda: TT.cull_plain(tl.bounds, rays))
+        if not torch.equal(vote_p, vote):
             raise AssertionError(f"B3 {name}: votes differ on "
-                                 f"{int((vote_p != vote[sub]).sum())} pairs")
+                                 f"{int((vote_p != vote).sum())} pairs")
         (t_p, id_p), walk_plain_ms = _once_ms(lambda: TT.walk_plain(
             tl.table, order[sub], n_eff[sub], mask[sub], feat[sub],
             tmb[sub], tl.fsub))
@@ -724,16 +947,15 @@ def phase_b3_b4(rng, card, setup):
                 f" rays, t bits on {int((bits_p != bits_k).sum())}")
         if name == "grazing" and not bool((n_eff[sub] > TT.MAXS).any()):
             raise AssertionError("B4 grazing: no dense-walk block compared")
-        cull_err = float((vote_p.float() - vote[sub].float()).abs().max())
+        cull_err = float((vote_p.float() - vote.float()).abs().max())
         walk_err = float((t_p - t_k[sub]).abs().max())
         cull_ms = _median_ms(lambda: TT.cull(tl.bounds, rays))
+        cull_ab = _ab_ms(lambda: TT.cull(tl.bounds, rays), other)
         walk_ms = _median_ms(lambda: TT.walk(tl.table, order, n_eff, mask,
                                              feat, tmb, tl.fsub, tl.packed))
-        # The kernels on the plain versions' blocks: like-for-like times.
+        # B4 on its plain version's blocks: like-for-like times.
         walk_sub = (tl.table, order[sub], n_eff[sub], mask[sub], feat[sub],
                     tmb[sub], tl.fsub, tl.packed)
-        rays_sub = rays[sub]
-        cull_sub_ms = _median_ms(lambda: TT.cull(tl.bounds, rays_sub))
         walk_sub_ms = _median_ms(lambda: TT.walk(*walk_sub))
         # Worklist statistics and the work these rays need.
         count = vote.reshape(G, tl.n_sub, tl.fsub).any(-1).sum(1)
@@ -748,7 +970,11 @@ def phase_b3_b4(rng, card, setup):
             TT.ST // tl.fsub)  # triangles each block's walk tests
         pairs = int((live * req).sum())
         tests = _cull_tests(tl.bounds, rays)
-        b3 = _bound(tests * B3_OPS, _nbytes(tl.bounds, rays, vote))
+        work = _cull_work(tl.bounds, rays)
+        b3_bytes = _nbytes(tl.bounds, rays, vote)
+        b3 = _bound(work["reject"] * B3_REJECT_OPS + work["sweep"] * B3_OPS,
+                    b3_bytes)
+        b3_flat, _ = _bound(tests * B3_OPS, b3_bytes)
         b4_bytes = _nbytes(tl.packed, order, n_eff, mask, feat, tmb, t_k,
                            id_k)
         b4 = _bound(pairs * B4_OPS, b4_bytes)
@@ -758,12 +984,15 @@ def phase_b3_b4(rng, card, setup):
               f"{float(count.float().mean()):.1f} max {int(count.max())} of "
               f"{tl.n_sub} subtiles, {int(dense.sum())} dense-walk blocks, "
               f"mask gates off {gated:.4f} of the walked subgroups; "
-              f"{tests} box tests, {pairs} (ray, triangle) pairs", flush=True)
-        print(f"B3 {name}: votes equal on {len(sub)} blocks; kernel "
-              f"{cull_ms:.3f} ms ({G} blocks), {cull_sub_ms:.3f} ms and "
-              f"plain {cull_plain_ms:.3f} ms (once) on the {len(sub)} "
-              f"compared blocks, bound {b3[0]:.3f} ms ({b3[1]}, {G} blocks) "
-              f"[{card}]", flush=True)
+              f"{tests} box tests in a flat sweep, {pairs} (ray, triangle) "
+              f"pairs", flush=True)
+        print(f"B3 {name}: votes equal on all {G} blocks; "
+              f"{_cull_work_text(work, G)}; kernel {cull_ms:.3f} ms, plain "
+              f"{cull_plain_ms:.3f} ms (once), bound {b3[0]:.3f} ms "
+              f"({b3[1]}; {b3[0] / cull_ms:.3f} of the kernel's time; "
+              f"{b3_flat:.3f} ms, {b3_flat / cull_ms:.3f}, at the flat "
+              f"sweep's {tests} tests){_ab_text(cull_ab)} [{card}]",
+              flush=True)
         print(f"B4 {name}: (t, id) bit-identical on {len(sub)} blocks "
               f"({int(dense[sub].sum())} dense), {int((id_k >= 0).sum())} "
               f"hits; kernel {walk_ms:.3f} ms ({G} blocks), {walk_sub_ms:.3f}"
@@ -773,8 +1002,8 @@ def phase_b3_b4(rng, card, setup):
               f"{b4_eager:.3f} ms, {b4_eager / walk_ms:.3f}, at {EAGER_OPS} "
               f"operations a pair) [{card}]", flush=True)
         out[name] = dict(blocks=G, plain_blocks=len(sub), cull_ms=cull_ms,
-                         walk_ms=walk_ms, cull_sub_ms=cull_sub_ms,
-                         walk_sub_ms=walk_sub_ms, cull_plain_ms=cull_plain_ms,
+                         walk_ms=walk_ms, walk_sub_ms=walk_sub_ms,
+                         cull_plain_ms=cull_plain_ms,
                          walk_plain_ms=walk_plain_ms, cull_err=cull_err,
                          walk_err=walk_err, b3=b3, b4=b4)
     return out
@@ -793,7 +1022,7 @@ def _print_build(cuda_build):
               f"blocks of 128 threads resident per SM", flush=True)
 
 
-def main(kernels_only: bool = False) -> int:
+def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -823,11 +1052,13 @@ def main(kernels_only: bool = False) -> int:
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
+    other = (phase("other tree's B2 and B3", _other_library, other_tree)
+             if other_tree else None)
     b1 = phase("B1", phase_b1, rng, card)
-    b2 = phase("B2", phase_b2, rng, card)
+    b2 = phase("B2", phase_b2, rng, card, other)
     if kernels_only:
         phase("B3/B4", phase_b3_b4, rng, card,
-              phase("terrain setup", _terrain_renderer)[0].s)
+              phase("terrain setup", _terrain_renderer)[0].s, other)
         print("kernels only: no main path driven, no result lines",
               flush=True)
         return 0
@@ -835,8 +1066,11 @@ def main(kernels_only: bool = False) -> int:
     # has run in a process, later launches cost the host more (a terrain
     # iteration took 6.2-7.2 s after a profile and 5.4-6.3 s before one,
     # in one run on an NVIDIA H100 80GB HBM3).
-    launches, rs, stair_s = phase("staircase main path", phase_main_path,
-                                  card)
+    launches, rs, stair_s, filter_calls = phase(
+        "staircase main path", phase_main_path, card)
+    b2r = phase("B2 render inputs", phase_b2_render, card, other,
+                filter_calls)
+    del filter_calls
     phase("small staircase", phase_small_reference, card, "staircase",
           scene_small())
     r, tl_launches, render_s = phase("terrain main path",
@@ -845,9 +1079,13 @@ def main(kernels_only: bool = False) -> int:
     path_ms = phase("staircase profile", phase_staircase_profile, card, rs,
                     stair_s)
     del rs
-    path_ms.update(phase("terrain profile", phase_terrain_profile, card, r,
-                         render_s))
-    b34 = phase("B3/B4", phase_b3_b4, rng, card, r.s)
+    terrain_ms, cull_calls = phase("terrain profile", phase_terrain_profile,
+                                   card, r, render_s)
+    path_ms.update(terrain_ms)
+    phase("B3 main-path rays", phase_b3_main_rays, card, r.s.bvh.bounds,
+          cull_calls, other)
+    del cull_calls
+    b34 = phase("B3/B4", phase_b3_b4, rng, card, r.s, other)
     del r
     phase("small terrain", phase_small_reference, card, "terrain",
           terrain_small())
@@ -866,13 +1104,17 @@ def main(kernels_only: bool = False) -> int:
          "source": "statmc_tpu_torch/csrc/stat_filter.cu",
          "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
          "launches": launches["B2"], "main_path_ms": path_ms["B2"],
-         "max_abs_err": max(v["err"] for v in b2.values()),
+         "max_abs_err": max(v["err"] for v in (*b2.values(), *b2r.values())),
          "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"],
          "bound_ms": b2[True]["bound_ms"], "bound_by": b2[True]["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         # The same on the render's own inputs (iteration 2's denoise).
+         "render_ms": b2r[True]["ms"], "render_plain_ms": b2r[True]["plain_ms"],
+         "render_bound_ms": b2r[True]["bound_ms"],
+         "render_accepted": b2r[True]["accepted"]},
         # B3/B4: ms and bound_ms on all `blocks` of the camera rays;
-        # plain_ms, and the kernel's subset_ms beside it, on the
-        # `plain_blocks` blocks where the two were compared.
+        # plain_ms on the `plain_blocks` blocks where the two were
+        # compared (all for B3), and for B4 the kernel's subset_ms on them.
         {"name": "B3 twolevel_cull", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/twolevel_cull.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:249",
@@ -881,8 +1123,7 @@ def main(kernels_only: bool = False) -> int:
          "ms": cam["cull_ms"], "plain_ms": cam["cull_plain_ms"],
          "bound_ms": cam["b3"][0], "bound_by": cam["b3"][1],
          "library_ms": None, "blocks": cam["blocks"],
-         "plain_blocks": cam["plain_blocks"],
-         "subset_ms": cam["cull_sub_ms"]},
+         "plain_blocks": cam["blocks"]},
         {"name": "B4 twolevel_walk", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/twolevel_walk.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:406",
@@ -902,4 +1143,7 @@ def main(kernels_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(kernels_only="--kernels" in sys.argv[1:]))
+    argv = sys.argv[1:]
+    sys.exit(main(kernels_only="--kernels" in argv,
+                  other_tree=(argv[argv.index("--other") + 1]
+                              if "--other" in argv else None)))

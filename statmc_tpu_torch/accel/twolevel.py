@@ -27,7 +27,10 @@ to FINE_MAX_TRIS, else one).  One intersect call:
 leaves zero (``accel/plucker.py``), which is what B4 reads.
 ``cull``/``walk`` are the kernel wrappers; ``cull_plain``/``walk_plain``
 beside them are the same functions in plain PyTorch, used for tensors on
-the CPU and as the kernels' references on the card.
+the CPU and as the kernels' references on the card.  ``cull_reject`` and
+``cull_two_stage`` are plain twins of the exact per-sub-block reject that
+kernel B3 runs before its per-ray test; the tests hold them to
+``cull_plain``.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ FINE_MAX_TRIS = 300_000  # beyond: cull cost is rays*n_fine, gate off
 _NCOLS = 5 * ST  # table columns: [w0|w1|w2|num|den] * ST
 _ROWS = 10  # feature rows that can be non-zero
 _CULL_CHUNK = 1 << 25  # (ray, subgroup) pairs per plain-cull step
+SUB_RAYS = 128  # rays per sub-block of kernel B3's reject, at most
 _stage = torch.profiler.record_function  # a named range in profiler traces
 
 
@@ -280,6 +284,84 @@ def cull_plain(bounds, rays):
     step = max(1, _CULL_CHUNK // (RT * max(nf, 1)))
     for g0 in range(0, G, step):
         vote[g0:g0 + step] = slab_votes(bounds, rays[g0:g0 + step]).any(1)
+    return vote
+
+
+def _sub_blocks(rays):
+    """rays [G, RT, 8] -> [G, RT] int64: each live ray's sub-block in
+    kernel B3's reject, -1 for dead rays (t_max <= 0 or NaN).  A block's
+    live rays are grouped by the octant of their inverse direction, in
+    block order, and each octant's run is cut into pieces of SUB_RAYS:
+    sub-block = octant * (RT // SUB_RAYS) + rank in the octant // SUB_RAYS."""
+    RT = rays.shape[1]
+    live = rays[..., 6] > 0
+    inv = rays[..., 3:6] > 0
+    octant = inv[..., 0].long() * 4 + inv[..., 1].long() * 2 + inv[
+        ..., 2].long()
+    key = torch.where(live, octant, 8)
+    rank = torch.cumsum(torch.nn.functional.one_hot(key, 9), 1).gather(
+        2, key[..., None])[..., 0] - 1
+    return torch.where(live, octant * (RT // SUB_RAYS) + rank // SUB_RAYS, -1)
+
+
+def cull_reject(bounds, rays):
+    """Plain PyTorch twin of kernel B3's reject, for the tests: bounds
+    [nf, 8], rays [G, RT, 8] -> (sub [G, RT] from `_sub_blocks`, keep
+    [G, 8 * RT // SUB_RAYS, nf] bool).  keep[g, s, j] is False where
+    sub-block s of block g is empty, or where the intervals of its rays'
+    origin and inverse-direction components (all finite) bound every
+    ray's slab times so that none can vote for box j: the least corner
+    product fl(fl(lo - o) * inv) bounds tn from below, the greatest
+    bounds tf from above (rounding is monotone in each argument), and
+    the pair is dropped if tf_up <= 0 or tn_lo > tf_up * 1.0001.  NaN
+    propagates and drops nothing."""
+    G, RT = rays.shape[0], rays.shape[1]
+    ns = 8 * RT // SUB_RAYS
+    sub = _sub_blocks(rays)
+    member = torch.nn.functional.one_hot(sub + 1, ns + 1)[..., 1:].bool()
+    inf = torch.tensor(float("inf"), device=rays.device)
+
+    def red(x, lo: bool):  # [G, RT] -> [G, ns], NaN-propagating
+        if lo:
+            return torch.where(member, x[..., None], inf).amin(1)
+        return torch.where(member, x[..., None], -inf).amax(1)
+
+    omin = [red(rays[..., a], True) for a in range(3)]
+    omax = [red(rays[..., a], False) for a in range(3)]
+    imin = [red(rays[..., 3 + a], True) for a in range(3)]
+    imax = [red(rays[..., 3 + a], False) for a in range(3)]
+    finite = torch.stack(omin + omax + imin + imax).isfinite().all(0)
+    tn = torch.full((), -1e30, device=rays.device)
+    tf = red(rays[..., 6], False)[..., None]  # [G, ns, 1]
+    for a in range(3):
+        xs = [(bounds[:, k] - o[..., None]) for k in (a, 3 + a)
+              for o in (omax[a], omin[a])]  # [G, ns, nf] each
+        ps = [x * i[..., None] for x in xs for i in (imin[a], imax[a])]
+        lower, upper = ps[0], ps[0]
+        for p in ps[1:]:
+            lower = torch.minimum(lower, p)
+            upper = torch.maximum(upper, p)
+        tn = torch.maximum(tn, lower)
+        tf = torch.minimum(tf, upper)
+    c = torch.tensor(1.0001, dtype=torch.float32, device=rays.device)
+    drop = finite[..., None] & ((tf <= 0) | (tn > tf * c))
+    return sub, member.any(1)[..., None] & ~drop
+
+
+def cull_two_stage(bounds, rays):
+    """`cull_plain` through the reject, for the tests: the per-ray slab
+    test counts only on the (sub-block, box) pairs that `cull_reject`
+    keeps.  Equal to `cull_plain` bit for bit when the reject is exact."""
+    G, RT = rays.shape[0], rays.shape[1]
+    nf = bounds.shape[0]
+    vote = torch.zeros((G, nf), dtype=torch.bool, device=rays.device)
+    step = max(1, _CULL_CHUNK // (RT * max(nf, 1)))
+    for g0 in range(0, G, step):
+        r = rays[g0:g0 + step]
+        sub, keep = cull_reject(bounds, r)
+        ok = keep.gather(1, sub.clamp(min=0)[..., None].expand(-1, -1, nf))
+        vote[g0:g0 + step] = (slab_votes(bounds, r) & ok
+                              & (sub >= 0)[..., None]).any(1)
     return vote
 
 

@@ -108,6 +108,56 @@ def test_b2_kernel_matches_plain(cuda, normalize):
     assert float(wk.min()) >= 1.0 - 1e-5
 
 
+# (H, W, C, CF, G, r, kind): H and W not multiples of the kernel's tile
+# (128 columns x 4 or 2 rows); r = 0, 1, 20, and past the image; C = 1..4,
+# CF up to 8, G = 0..16; rows staged in two pieces (W > 256, r = 70);
+# valid with zeros; a high accept share (large d2).
+B2_CASES = [
+    (37, 133, 3, 3, 6, 20, "render_shape"),
+    (21, 50, 3, 3, 6, 0, "r0"),
+    (30, 131, 1, 1, 0, 1, "r1"),
+    (9, 13, 2, 5, 3, 40, "r_past_image"),
+    (19, 270, 4, 8, 16, 20, "widest"),
+    (23, 300, 3, 3, 6, 70, "pieces"),
+    (17, 40, 3, 6, 6, 5, "valid_zeros"),
+    (20, 64, 3, 3, 6, 20, "high_accept"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("H,W,C,CF,G,r,kind", B2_CASES)
+def test_b2_staged_kernel_matches_plain(cuda, normalize, H, W, C, CF, G, r,
+                                        kind):
+    """The staged B2 against its plain version on ragged shapes, every
+    channel count it takes and radii from 0 to past the image: rtol 1e-4
+    / atol 1e-6 (expf against the library exp)."""
+    rng = np.random.default_rng(H * W + C)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=cuda)
+
+    d2 = (np.full((H, W, C), 10.0) if kind == "high_accept"
+          else rng.gamma(2.0, 0.05, (H, W, C)))
+    valid = (rng.random((H, W)) > 0.3 if kind == "valid_zeros"
+             else np.ones((H, W)))
+    args = (t(rng.standard_normal((H, W, C))), t(d2),
+            t(rng.random((H, W, CF))), t(rng.random((H, W, G))), t(valid),
+            r, -0.02, tuple((-0.5 if kind == "high_accept" else -50.0)
+                            * rng.random(G)))
+    before = FC.run_filter.launches
+    ok, wk = FC.run_filter(*args, normalize=normalize)
+    assert FC.run_filter.launches == before + 1
+    op, wp = FC.run_filter_plain(*args, normalize=normalize)
+    torch.testing.assert_close(ok, op, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-6)
+    if kind == "high_accept":  # every in-image pair accepted
+        assert float(wk.min()) > 1.5
+    elif kind == "valid_zeros":
+        assert float(wk.min()) < 1.0
+
+
 def _twolevel_case(cuda, n_tris, spread, size, ray_spread, seed, fsub=None):
     """Padded block inputs of random triangles and rays (a third of the
     rays dead), through the port's glue on the card."""
@@ -143,6 +193,86 @@ def test_b3_kernel_matches_plain(cuda):
     assert TT.cull.launches == before + 1
     assert torch.equal(vote, TT.cull_plain(tl.bounds, rays))
     assert vote.any() and not vote.all() and not vote[1].any()
+
+
+CULL_CASES = ["camera", "sorted", "mixed_sign", "fallback_dirs",
+              "dead_blocks", "nonfinite_origins", "t_max_special",
+              "padding_boxes", "fsub1"]
+
+
+def cull_case(case, device="cpu"):
+    """(bounds, rays, tl) for kernel B3 and its plain reject: random
+    triangles (nf = 144, or 8 with 3 padding boxes, or 36 at fsub 1: none a
+    multiple of the kernel's 32 boxes a warp) and 4 blocks and a partial
+    one of rays through the port's glue, then the case's special values
+    written into the slab rays.  Also imported by the CPU tests."""
+    rng = np.random.default_rng(CULL_CASES.index(case))
+    T = 129 if case == "padding_boxes" else 4500
+    p0 = rng.uniform(-10, 10, (T, 3)).astype(np.float32)
+    e1, e2 = rng.uniform(-0.5, 0.5, (2, T, 3)).astype(np.float32)
+    tl = TT.TwoLevelTris.from_tris(
+        p0, e1, e2, fsub=1 if case == "fsub1" else None).to_device(device)
+    R = 4 * TT.RT_WALK + 77
+    if case == "camera":  # a pinhole's fan of rays, sorted as the path sorts
+        o = np.tile(np.float32([0.5, 4.0, -16.0]), (R, 1))
+        u = np.arange(R) % 64 / 64.0 - 0.5
+        v = np.arange(R) // 64 / 40.0 - 0.5
+        d = np.stack([u, v, np.ones(R)], -1).astype(np.float32)
+    else:
+        o = rng.uniform(-12, 12, (R, 3)).astype(np.float32)
+        d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(np.arange(R) % 3 == 2, 0.0, np.where(
+        np.arange(R) % 3 == 1, 9.0, 1e30)).astype(np.float32)
+    if case == "fallback_dirs":  # inverse components of +-1e12
+        d[0::3, 0] = 0.0
+        d[1::3, 1] = -0.0
+        d[2::5, 2] = 1e-13
+        d[3::7, 0] = -1e-13
+    _, o_p, d_p, tm_p = TT.blocks(
+        tl, *(torch.as_tensor(x, device=device) for x in (o, d, t_max)),
+        sort=case not in ("mixed_sign", "nonfinite_origins"))
+    rays = TT.slab_rays(o_p, d_p, tm_p)
+    nan, inf = float("nan"), float("inf")
+    if case == "dead_blocks":
+        rays[0, :, 6] = 0.0  # no live ray
+        rays[1, ::2, 6] = -1.0  # partly dead
+        rays[1, 1::4, 6] = nan
+    elif case == "nonfinite_origins":
+        rays[0, ::5, 0] = nan
+        rays[1, ::7, 1] = inf
+        rays[2, ::9, 2] = -inf
+        rays[2, ::9, 5] = 0.0  # -inf * 0: NaN slab times
+    elif case == "t_max_special":
+        rays[0, :, 6] = inf
+        rays[1, ::2, 6] = nan
+        rays[2, :, 6] = 1e30
+        rays[3, ::3, 6] = inf
+    elif case == "padding_boxes":
+        # Inverse 1e12 on every axis and t_max = +inf: the slab times of
+        # the padding boxes (lo = hi = 1e30) overflow to inf <= inf, so
+        # these rays vote for them.
+        rays[1, :64, 3:6] = 1e12
+        rays[1, :64, 6] = inf
+    return tl.bounds, rays.contiguous(), tl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_b3_reject_kernel_matches_plain(cuda, case):
+    """The redesigned B3 (per sub-block reject, then the per-ray sweep) on
+    sorted camera-like blocks, unsorted mixed-octant blocks and special
+    rays: votes equal cull_plain's bit for bit."""
+    bounds, rays, _ = cull_case(case, cuda)
+    before = TT.cull.launches
+    vote = TT.cull(bounds, rays)
+    assert TT.cull.launches == before + 1
+    assert torch.equal(vote, TT.cull_plain(bounds, rays))
+    assert vote.any()
+    if case == "dead_blocks":
+        assert not vote[0].any()
+    if case == "padding_boxes":
+        assert vote[1, 5:].all()
 
 
 @pytest.mark.parametrize("case", ["worklists", "dense", "fsub1", "inf",

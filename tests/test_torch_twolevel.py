@@ -32,6 +32,7 @@ from statmc_tpu_torch.accel import plucker as PL
 from statmc_tpu_torch.accel import twolevel as TT
 from statmc_tpu_torch.render import camera as TC
 from statmc_tpu_torch.render import integrator as TI
+from test_torch_gpu import CULL_CASES, cull_case
 
 torch.set_num_threads(2)
 
@@ -487,3 +488,36 @@ def test_plain_walk_special_rays_match_walk_xla(case):
         assert (flat_id[::2] == -1).all() and np.isnan(flat_t[::2]).all()
     else:
         assert (flat_id[::2] == -1).all() and (flat_id >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_reject_is_exact(case):
+    """Kernel B3's reject, held through its plain twin cull_reject: no ray
+    of a sub-block that the reject drops for a box votes for that box in
+    cull_plain, and the two-stage cull (the per-ray test only on the
+    surviving pairs) equals cull_plain bit for bit.  Cases: a sorted
+    camera fan, sorted and unsorted (mixed-octant) random rays, +-1e12
+    fallback inverses, dead and partly dead blocks, NaN and +-inf
+    origins, t_max of +inf / NaN / 1e30, padding boxes at 1e30, fsub 1
+    and 4, nf not a multiple of the kernel's 32 boxes a warp."""
+    bounds, rays, tl = cull_case(case)
+    assert bounds.shape[0] % 32
+    vote = TT.cull_plain(bounds, rays)
+    sub, keep = TT.cull_reject(bounds, rays)
+    ns = keep.shape[1]
+    member = torch.nn.functional.one_hot(sub + 1, ns + 1)[..., 1:].bool()
+    by_sub = (member[..., None] & TT.slab_votes(bounds, rays)[:, :, None]
+              ).any(1)  # [G, ns, nf]: some ray of sub-block s votes for j
+    assert not (by_sub & ~keep).any()
+    assert torch.equal(TT.cull_two_stage(bounds, rays), vote)
+    dropped = member.any(1)[..., None] & ~keep
+    assert dropped.any() and vote.any()
+    assert (sub >= 0).sum() == (rays[..., 6] > 0).sum()
+    if case == "dead_blocks":
+        assert not vote[0].any() and not keep[0].any()
+    if case == "padding_boxes":
+        assert tl.fsub == 4 and (bounds[5:, :6] == 1e30).all()
+        assert vote[1, 5:].all()
+    assert int(member.sum(1).max()) <= TT.SUB_RAYS
+    if case == "camera":  # coherent rays: most pairs never reach the sweep
+        assert float(dropped.sum() / member.any(1).sum()) > 0.5 * len(bounds)
