@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (statmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --kernels  # phases 1-4 and 11 only: the kernels
+    python3 chip_smoke.py --kernels  # phases 1-4, 7b and 11 only: the kernels
                                      # against their plain versions, no
                                      # main path, no result lines
     python3 chip_smoke.py --other DIR  # also time B2 and B3 built from the
@@ -34,12 +34,30 @@ and the final line is not printed:
 7. the same call as 5 on a small staircase proxy (32x24) on the card and
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
+7a. samplers: one 1280x720 staircase iteration under random, halton,
+   sobol and 02sequence, twice in turns (rays/s, B1's launches around
+   each), then 7 under each LD mode and lockstep;
+7b. B2 as the backward kernel of denoise/grad.py's FilterApply: one
+   forward + backward at 1280x720, r = 20 (B2's launches counted around
+   it), the gradient against the plain version's VJP and, on a 96x96
+   crop at r = 5, against filter_apply_diff's autograd; the backward
+   kernel's time and bound, and forward + backward;
+7c. reference parity: Renderer.render_lockstep_exact on the five scenes
+   of tests/fixtures/refparity/ (B1's launches around each), held to
+   the C++ reference's own PFMs at tests/test_refparity.py's tolerances;
+   B1 against its plain version, bit for bit, on the recorded inputs of
+   every B1 call of those replays (down to 1-4 live rays a call);
+7d. checkpoint: a small staircase interrupted after iteration 1, saved,
+   restored into a fresh renderer and finished, equal bit for bit to the
+   uninterrupted render; B1's and B2's launches set to 0 just before the
+   resumed iteration, read just after, and both must be above 0;
 8. the terrain main path (the large-scene, two-level path):
    ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
    proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
    set to 0 just before it and read just after;
 9. the staircase's iteration 2 once more under torch.profiler (device
-   activity only): B1's and B2's device time per iteration; then one more
+   activity only): B1's device time per iteration, and B2's from that
+   iteration's denoise pass profiled once more on its own; then one more
    terrain iteration under torch.profiler: device time by
    kernel (B3's and B4's per iteration) and by stage of the two-level
    intersect call (partition, slab rays, B3, worklists, features, B4,
@@ -58,7 +76,15 @@ and the final line is not printed:
     compared on 64 blocks of each (timed on all and on those 64);
 12. a small terrain proxy (32x24, 19,554 triangles, still two-level) on
     the card and on the CPU: the buffers must agree;
-13. one JSON line of per-kernel results, then the device line.
+12a. the command line: ``python -m statmc_tpu_torch`` in a subprocess on
+    the 1280x720 staircase with configs/render-for-ours.pbrt's block (cut
+    to maxdepth 8 and 4 spp), 2 iterations, every buffer written; then
+    ``--denoise`` with configs/denoise.pbrt's block; every PFM finite,
+    film-f equal to the same render denoised in memory (rtol 1e-4 / atol
+    1e-5); each subprocess reports its kernels' launches (the CLI's
+    ``Kernel launches:`` line): B1 in the render, B2 in --denoise;
+13. one JSON line of this slice's workflow results, one of per-kernel
+    results, then the device line.
 
 Kernel times are CUDA-event medians of 10 runs after 3 warm-ups; a plain
 version runs once, and its time is that one CUDA-event reading.  Each
@@ -419,18 +445,17 @@ def _filter_pairs(mc, d2, radius):
     return pairs, accepted
 
 
-def _profile_iteration(r, i, host: bool = True):
-    """Iteration i of renderer r under torch.profiler: (its log, the
-    sums of `_trace_sums`, seconds spent reading the trace).  host=False
-    records the device only: the kernels' times by name, without the
-    host's ops, ranges and launches, at a fraction of the profiler's
-    cost."""
+def _profile(fn, host: bool = True):
+    """fn() under torch.profiler: (what it returns, the sums of
+    `_trace_sums`, seconds spent reading the trace).  host=False records
+    the device only: the kernels' times by name, without the host's ops,
+    ranges and launches, at a fraction of the profiler's cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  if host else [ProfilerActivity.CUDA]) as prof:
-        log = r.run_iteration(i)
+        log = fn()
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     groups, launches, stages = _trace_sums(prof)
@@ -522,10 +547,15 @@ def phase_b2_render(card, other, calls):
 
 def phase_staircase_profile(card, r, render_s):
     """The staircase main path's iteration 2 once more under
-    torch.profiler (device activity only): B1's and B2's device time per
-    iteration, and the device's busy share of the unprofiled iteration
-    (render_s).  Returns {kernel: device ms per iteration}."""
-    log, groups, _, _, read_s = _profile_iteration(r, 2, host=False)
+    torch.profiler (device activity only): B1's device time per
+    iteration and the device's busy share of the unprofiled iteration
+    (render_s); then that iteration's denoise pass once more, profiled on
+    its own, for B2's device time (the trace of the ~270,000 kernels of
+    an iteration has been seen to lose its last ~200 records, B2's among
+    them).  Returns {kernel: device ms per iteration}."""
+    log, groups, _, _, read_s = _profile(lambda: r.run_iteration(2),
+                                         host=False)
+    _, den, _, _, _ = _profile(r._denoise, host=False)
     total = sum(ms for ms, _ in groups.values())
     print(f"staircase profile: iteration 2 again, {log['render_s']:.3f} s "
           f"render + {log['denoise_s'] * 1e3:.1f} ms denoise profiled, "
@@ -535,10 +565,13 @@ def phase_staircase_profile(card, r, render_s):
           f"{render_s:.3f} s; "
           + ", ".join(f"{g} {ms:.1f} ms ({n})"
                       for g, (ms, n) in groups.items() if n)
+          + "; the denoise pass alone: " + ", ".join(
+              f"{g} {ms:.1f} ms ({n})" for g, (ms, n) in den.items() if n)
           + f" [{card}]", flush=True)
-    if groups["B1"][1] <= 0 or groups["B2"][1] <= 0:
-        raise AssertionError("staircase profile: B1 or B2 not in the trace")
-    return {k: groups[k][0] for k in ("B1", "B2")}
+    if groups["B1"][1] <= 0 or den["B2"][1] <= 0:
+        raise AssertionError("staircase profile: B1 not in the iteration's"
+                             " trace or B2 not in the denoise pass's")
+    return {"B1": groups["B1"][0], "B2": den["B2"][0]}
 
 
 def phase_small_reference(card, name, text):
@@ -734,7 +767,8 @@ def phase_terrain_profile(card, r, render_s):
 
     TT.slab_rays = record
     try:
-        log, groups, launches, stages, read_s = _profile_iteration(r, 1)
+        log, groups, launches, stages, read_s = _profile(
+            lambda: r.run_iteration(1))
     finally:
         TT.slab_rays = real
     total = sum(ms for ms, _ in groups.values())
@@ -1009,6 +1043,413 @@ def phase_b3_b4(rng, card, setup, other):
     return out
 
 
+# The reference renderer's fixture scenes (tests/fixtures/refparity/):
+# base seed, film and moment tolerances (tests/test_refparity.py), width,
+# tracked bounces.
+REFPARITY = {"tiny": (0, 2e-6, 2e-5, 16, 1),
+             "mirrorbox": (7, 2e-5, 5e-5, 16, 1),
+             "fourtile": (11, 5e-5, 2e-4, 32, 1),
+             "arealight": (3, 1e-5, 3e-4, 16, 1),
+             "tracked": (5, 2e-4, 5e-4, 16, 3)}
+LD_SAMPLERS = ("halton", "sobol", "02sequence")
+CROP, CROP_RADIUS = 96, 5  # B2 backward against autodiff
+
+
+def _with_sampler(text, sampler):
+    if 'Sampler "random"' not in text:
+        raise AssertionError("scene text without a random sampler")
+    return text.replace('Sampler "random"', f'Sampler "{sampler}"')
+
+
+def _write_scene(tmp, name, text):
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_samplers(card):
+    """One iteration of the 1280x720 staircase under random and each LD
+    sampler, twice in turns (random, halton, sobol, 02sequence, then
+    back; B1's launches counted around each), then the 32x24 proxy under
+    every sampler mode on the card and on the CPU.  Returns {sampler:
+    rays/s, the mean of its two runs}."""
+    import numpy as np
+
+    from statmc_tpu_torch.accel import fused as F
+    from statmc_tpu_torch.driver import load
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        order = ("random",) + LD_SAMPLERS
+        for sampler in order + order[::-1]:
+            path = _write_scene(tmp, f"{sampler}.pbrt", _with_sampler(
+                _scene_text(WIDTH, HEIGHT), sampler))
+            r = load(path, device="cuda")
+            r.progress = False
+            F.intersect_tiles.launches = 0
+            log = r.render(iterations=1, verbose=False)[-1]
+            launches = F.intersect_tiles.launches
+            film = r.film_mean.cpu().numpy()
+            if not (np.isfinite(film).all() and film.mean() > 0
+                    and launches > 0):
+                raise AssertionError(f"{sampler}: film or launches")
+            rate = log["rays_total"] / log["render_s"]
+            runs.setdefault(sampler, []).append(rate)
+            print(f"sampler {sampler}: {WIDTH}x{HEIGHT} spp {SPP} maxdepth "
+                  f"{MAXDEPTH}, iteration 1: {log['rays_total']:.0f} rays "
+                  f"in {log['render_s']:.3f} s = {rate:.1f} rays/s, B1 "
+                  f"launches {launches} [{card}]", flush=True)
+            del r
+    rates = {k: statistics.mean(v) for k, v in runs.items()}
+    print("samplers, mean rays/s of two runs (the two) against random's: "
+          + ", ".join(f"{k} {rates[k] / rates['random']:.3f} ("
+                      + ", ".join(f"{x:.0f}" for x in runs[k]) + ")"
+                      for k in order) + f" [{card}]", flush=True)
+    for sampler in LD_SAMPLERS + ("lockstep",):
+        phase_small_reference(card, f"staircase-{sampler}",
+                              _with_sampler(scene_small(), sampler))
+    return rates
+
+
+def phase_b2_backward(card):
+    """denoise/grad.py's FilterApply on the card: its backward pass is B2
+    with normalize=False on g / max(wsum, 1e-20).  At 1280x720, r = 20,
+    G = 6, CF = 3 against the plain version's VJP on the same inputs
+    (rtol 1e-4 / atol 1e-6); on a 96x96 crop at r = 5 against
+    filter_apply_diff's autograd (rtol 1e-3 / atol 1e-5).  Times: the
+    backward kernel alone and forward + backward (CUDA events, median of
+    10 after 3 warm-ups), with the backward's bound."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+    from statmc_tpu_torch.denoise import grad as TG
+
+    # A generator of its own, so that the later phases' inputs stay those
+    # of earlier runs.
+    rng = np.random.default_rng(5)
+    mc, d2, fm, gb, valid = _filter_inputs(rng)
+    gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
+    ds = -0.5 / 10.0 ** 2
+    g = torch.as_tensor(rng.standard_normal(fm.shape).astype(np.float32),
+                        device="cuda")
+    x = fm.clone().requires_grad_(True)
+    FC.run_filter.launches = 0
+    TG.filter_apply(x, mc, d2, gb, valid, RADIUS, ds, gf).backward(g)
+    torch.cuda.synchronize()
+    launches = FC.run_filter.launches
+    if launches != 2:
+        raise AssertionError(f"FilterApply: {launches} B2 launches, not 2")
+    _, wsum_p = FC.run_filter_plain(mc, d2, fm, gb, valid, RADIUS, ds, gf)
+    gg_p = (g / torch.clamp(wsum_p, min=1e-20)[..., None]).contiguous()
+    (grad_p, _), plain_ms = _once_ms(lambda: FC.run_filter_plain(
+        mc, d2, gg_p, gb, valid, RADIUS, ds, gf, normalize=False))
+    torch.testing.assert_close(x.grad, grad_p, rtol=1e-4, atol=1e-6)
+    err = float((x.grad - grad_p).abs().max())
+
+    _, wsum = FC.run_filter(mc, d2, fm, gb, valid, RADIUS, ds, gf)
+    gg = (g / torch.clamp(wsum, min=1e-20)[..., None]).contiguous()
+    bwd_args = (mc, d2, gg, gb, valid, RADIUS, ds, gf, False)
+    ms = _median_ms(lambda: FC.run_filter(*bwd_args))
+
+    def fwd_bwd():
+        y = fm.detach().requires_grad_(True)
+        TG.filter_apply(y, mc, d2, gb, valid, RADIUS, ds, gf).backward(g)
+
+    fb_ms = _median_ms(fwd_bwd)
+    pairs, accepted = _filter_pairs(mc, d2, RADIUS)
+    grad_k, _ = FC.run_filter(*bwd_args)
+    bound_ms, bound_by = _bound(
+        pairs * B2_OPS_REJECT + accepted * (B2_OPS_ACCEPT - B2_OPS_REJECT),
+        _nbytes(mc, d2, gg, gb, valid, grad_k, wsum))
+
+    c = (slice(0, CROP), slice(0, CROP))
+    crop = [t[c].contiguous() for t in (fm, mc, d2, gb, valid, g)]
+    xk = crop[0].clone().requires_grad_(True)
+    xd = crop[0].clone().requires_grad_(True)
+    TG.filter_apply(xk, *crop[1:5], CROP_RADIUS, ds, gf).backward(crop[5])
+    TG.filter_apply_diff(xd, *crop[1:5], CROP_RADIUS, ds, gf).backward(
+        crop[5])
+    torch.testing.assert_close(xk.grad, xd.grad, rtol=1e-3, atol=1e-5)
+    crop_err = float((xk.grad - xd.grad).abs().max())
+    print(f"B2 backward: {WIDTH}x{HEIGHT} r={RADIUS} G=6 CF=3, FilterApply "
+          f"launched B2 {launches} times (forward, backward); gradient "
+          f"against the plain VJP max |d| {err:.3e}; {CROP}x{CROP} crop "
+          f"r={CROP_RADIUS} against filter_apply_diff max |d| "
+          f"{crop_err:.3e}; backward kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+          f" ms (once), bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{bound_ms / ms:.3f} of the kernel's time; {pairs} in-image "
+          f"pairs, {accepted / pairs:.4f} accepted); forward + backward "
+          f"{fb_ms:.3f} ms [{card}]", flush=True)
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, err=err,
+                crop_err=crop_err, bound_ms=bound_ms, bound_by=bound_by,
+                fwd_bwd_ms=fb_ms)
+
+
+def _b1_on_calls(calls):
+    """Kernel B1 against intersect_plain on the inputs of each recorded
+    intersect_fused call (the table, and the rays' features as that call
+    makes them): ids equal on every ray and t equal as bits.  Returns
+    (calls, live rays of the smallest and of the largest call, calls with
+    1-4 live rays)."""
+    import torch
+
+    from statmc_tpu_torch.accel import fused as F
+
+    lives = []
+    for k, (ft, o, d, t_max) in enumerate(calls):
+        raye, rayp = (x.contiguous() for x in F.ray_features(o, d))
+        args = (ft.edge_table, ft.plane_table, raye, rayp, t_max)
+        t_k, id_k = F.intersect_tiles(*args, ft.packed, ft.n_tris)
+        t_p, id_p = F.intersect_plain(*args, ft.n_tris)
+        if not (torch.equal(id_k, id_p)
+                and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))):
+            raise AssertionError(f"B1 on replay call {k}: ids differ on "
+                                 f"{int((id_k != id_p).sum())} rays, t bits "
+                                 f"on {int((t_k != t_p).sum())}")
+        lives.append((t_max > 0).sum())
+    lives = torch.stack(lives).cpu()
+    return (len(calls), int(lives.min()), int(lives.max()),
+            int(((lives >= 1) & (lives <= 4)).sum()))
+
+
+def phase_reference_parity(card):
+    """render_lockstep_exact of the five fixture scenes on the card, each
+    held to the C++ reference's own PFMs at tests/test_refparity.py's
+    tolerances (film, n exact, mean / m2 / m3, film-mean, and tracked's
+    bounces 1 and 2 at 1e-3); the inputs of every B1 call of the replay
+    are recorded, and B1 is held on each against its plain version, bit
+    for bit.  Returns ({scene: seconds}, {scene: B1 calls checked})."""
+    import numpy as np
+
+    from statmc_tpu_torch.accel import fused as F
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.io.pfm import read_pfm
+    from statmc_tpu_torch.render import intersect as TI
+    from statmc_tpu_torch.render.lockstep_exact import moments_from_samples
+
+    fix = os.path.join(REPO, "tests", "fixtures", "refparity")
+    times, checked = {}, {}
+    real = TI.intersect_fused
+    for stem, (seed, film_tol, mom_tol, wh, tracked) in REFPARITY.items():
+        def ref(name):
+            return read_pfm(os.path.join(fix, f"{stem}-4-{name}.pfm"))
+
+        calls = []
+
+        def record(ft, o, d, t_max):
+            calls.append((ft, o.clone(), d.clone(), t_max.clone()))
+            return real(ft, o, d, t_max)
+
+        r = load(os.path.join(fix, f"{stem}.pbrt"), base_seed=seed,
+                 device="cuda")
+        TI.intersect_fused = record
+        try:
+            F.intersect_tiles.launches = 0
+            t0 = time.perf_counter()
+            rep = r.render_lockstep_exact(spp=4)
+            times[stem] = time.perf_counter() - t0
+            launches = F.intersect_tiles.launches
+        finally:
+            TI.intersect_fused = real
+        n_calls, live_lo, live_hi, few = _b1_on_calls(calls)
+        del calls
+        checked[stem] = n_calls
+        if n_calls != launches:
+            raise AssertionError(f"{stem}: {n_calls} intersect_fused calls, "
+                                 f"{launches} B1 launches")
+        shape = (wh, wh, 3)
+        worst = {"film": (float(np.abs(rep.film.reshape(shape)
+                                       - ref("film")).max()), film_tol)}
+        n, mean, m2, m3 = moments_from_samples(rep.radiance)
+        if not np.array_equal(n.reshape(wh, wh), ref("t0-b0-n")):
+            raise AssertionError(f"{stem}: sample counts differ")
+        _, fmean, _, _ = moments_from_samples(rep.radiance, bc_lambda=None)
+        checks = [("mean", mean), ("m2", m2), ("m3", m3),
+                  ("film-mean", fmean)]
+        for name, x in checks:
+            worst[name] = (float(np.abs(x.reshape(shape)
+                                        - ref(f"t0-b0-{name}")).max()),
+                           mom_tol)
+        for b in range(1, tracked):
+            _, bm, bm2, bm3 = moments_from_samples(rep.radiance_b[:, :, b])
+            for name, x in (("mean", bm), ("m2", bm2), ("m3", bm3)):
+                worst[f"b{b}-{name}"] = (float(np.abs(
+                    x.reshape(shape) - ref(f"t0-b{b}-{name}")).max()), 1e-3)
+        bad = {k: v for k, v in worst.items() if not v[0] <= v[1]}
+        if bad or launches <= 0:
+            raise AssertionError(f"{stem}: beyond tolerance {bad}, B1 "
+                                 f"launches {launches}")
+        print(f"reference parity {stem}: {wh}x{wh} 4 spp, seed {seed}, "
+              f"{times[stem]:.2f} s, B1 launches {launches}, B1 bit-identical"
+              f" to plain on the inputs of all {n_calls} calls ({live_lo}-"
+              f"{live_hi} live rays a call, {few} calls with 1-4), n exact, "
+              f"max |d| (tolerance) " + ", ".join(
+                  f"{k} {v[0]:.2e} ({v[1]:.0e})" for k, v in worst.items())
+              + f" [{card}]", flush=True)
+    return times, checked
+
+
+def phase_checkpoint(card):
+    """A 2-iteration small staircase on the card, interrupted after
+    iteration 1, saved, restored into a fresh renderer and finished:
+    film, film-f, ray total, counters and every state equal the
+    uninterrupted render bit for bit, and the resumed iteration launched
+    B1 and B2.  Returns their launches in it."""
+    import torch
+
+    from statmc_tpu_torch.accel import fused as F
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+    from statmc_tpu_torch.driver import load
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "small.pbrt", scene_small())
+        full = load(path, base_seed=5, device="cuda")
+        full.progress = False
+        full.render(iterations=2, verbose=False)
+        a = load(path, base_seed=5, device="cuda")
+        a.progress = False
+        a.render(iterations=1, verbose=False)
+        ck = os.path.join(tmp, "ckpt.pt")
+        a.save_checkpoint(ck, next_iteration=2)
+        b = load(path, base_seed=5, device="cuda")
+        b.progress = False
+        nxt = b.restore_checkpoint(ck)
+        F.intersect_tiles.launches = 0
+        FC.run_filter.launches = 0
+        b.render(iterations=2, verbose=False, start_iteration=nxt)
+        launches = {"B1": F.intersect_tiles.launches,
+                    "B2": FC.run_filter.launches}
+    pairs = [("film", b.film_mean, full.film_mean),
+             ("film-f", b.film_f, full.film_f),
+             ("ray_total", b.ray_total, full.ray_total)]
+    pairs += [(f"stat {k}", b.stats[k], v) for k, v in full.stats.items()]
+    pairs += [(f"state {t} {k}", b.states[t][k], v)
+              for t, st in full.states.items() for k, v in st.items()]
+    bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+    if nxt != 2 or bad or min(launches.values()) <= 0:
+        raise AssertionError(f"checkpoint resume: next {nxt}, differ {bad}, "
+                             f"launches {launches}")
+    print(f"checkpoint: {SMALL_W}x{SMALL_H} staircase, iteration 1 saved, "
+          f"restored and finished: {len(pairs)} tensors equal the "
+          f"uninterrupted render bit for bit; resumed iteration's launches "
+          f"{launches} [{card}]", flush=True)
+    return launches
+
+
+def _config_block(name, maxdepth, denoiseimage=None):
+    """configs/<name>.pbrt (its Integrator and Sampler blocks) with
+    maxdepth cut, and denoiseimage set if asked."""
+    with open(os.path.join(REPO, "configs", f"{name}.pbrt")) as f:
+        text = f.read()
+    cuts = [('"integer  maxdepth"           [65]',
+             f'"integer  maxdepth"           [{maxdepth}]')]
+    if denoiseimage is not None:
+        flag = "true" if denoiseimage else "false"
+        cuts.append(('"bool     denoiseimage"     ["false"]',
+                     f'"bool     denoiseimage"     ["{flag}"]'))
+    for old, new in cuts:
+        if old not in text:
+            raise AssertionError(f"configs/{name}.pbrt: no {old}")
+        text = text.replace(old, new)
+    return text
+
+
+def phase_cli(card):
+    """python -m statmc_tpu_torch on the card in a subprocess: the
+    1280x720 staircase with configs/render-for-ours.pbrt's block
+    (calcstats, every buffer written, filter radius 20; cut to maxdepth
+    8 and its 4 spp, as the staircase main path runs), 2 iterations;
+    then --denoise on its directory with configs/denoise.pbrt's block.
+    Every PFM finite; film-f of each iteration within rtol 1e-4 / atol
+    1e-5 of the same render denoised in memory (the render-for-ours block
+    with denoiseimage on: ACRR and SMIS are off, so the filter changes
+    no draw).  The launch counts are each subprocess's own, from its
+    ``Kernel launches:`` line on standard error: B1 must have run in
+    the render, B2 in the --denoise run."""
+    import numpy as np
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.io.pfm import read_pfm
+
+    world = _scene_text(WIDTH, HEIGHT)
+    world = world[world.index("Film "):]
+    stem = "staircase-proxy"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {
+            "render": _config_block("render-for-ours", MAXDEPTH),
+            "denoise": _config_block("denoise", MAXDEPTH),
+            "memory": _config_block("render-for-ours", MAXDEPTH, True)}
+        paths = {k: _write_scene(tmp, f"{k}.pbrt", v + world)
+                 for k, v in scenes.items()}
+        outdir = os.path.join(tmp, "out")
+        runs = {}
+        for name, extra in (("render", ["--writeimages", "--baseseed", "3"]),
+                            ("denoise", ["--denoise"])):
+            cmd = [sys.executable, "-m", "statmc_tpu_torch", paths[name],
+                   "--outdir", outdir, "--iterations", "2"] + extra
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=600)
+            runs[name] = (time.perf_counter() - t0, proc.stdout)
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI {name}: rc {proc.returncode}\n"
+                                     f"{proc.stdout[-2000:]}"
+                                     f"{proc.stderr[-4000:]}")
+            tag = "Kernel launches: "
+            counts = [ln[len(tag):] for ln in proc.stderr.splitlines()
+                      if ln.startswith(tag)]
+            if len(counts) != 1:
+                raise AssertionError(f"CLI {name}: no launch counts\n"
+                                     f"{proc.stderr[-2000:]}")
+            out[name] = json.loads(counts[0])
+        if out["render"]["B1"] <= 0 or out["denoise"]["B2"] <= 0:
+            raise AssertionError(f"CLI launch counts {out}")
+        files = sorted(os.listdir(outdir))
+        by_spp = {spp: sorted(f[len(f"{stem}-{spp}-"):-4] for f in files
+                              if f.startswith(f"{stem}-{spp}-"))
+                  for spp in (SPP, 2 * SPP)}
+        need = {"film", "film-f", "t0-b0-n", "t0-b0-mean", "t0-b0-m2",
+                "t0-b0-m3", "t0-b0-film-mean", "t0-b0-film-m2"}
+        if by_spp[SPP] != by_spp[2 * SPP] or not need <= set(by_spp[SPP]):
+            raise AssertionError(f"CLI file set: {by_spp}")
+        for f in files:
+            if not np.isfinite(read_pfm(os.path.join(outdir, f))).all():
+                raise AssertionError(f"CLI {f}: not finite")
+
+        r = load(paths["memory"], base_seed=3, device="cuda")
+        r.progress = False
+        rd = load(paths["denoise"], device="cuda")
+        worst = 0.0
+        for i in (1, 2):
+            r.run_iteration(i)
+            disk = read_pfm(os.path.join(
+                outdir, f"{stem}-{r.total_spp(i)}-film-f.pfm"))
+            mem = r.film_f.cpu().numpy().reshape(disk.shape)
+            np.testing.assert_allclose(disk, mem, rtol=1e-4, atol=1e-5)
+            worst = max(worst, float(np.abs(disk - mem).max()))
+        # In this process too; it writes its own film and film-f over the
+        # subprocess's, which were read above.
+        rd.denoise_from_disk(outdir, 2)
+        np.testing.assert_allclose(rd.film_f.cpu().numpy().reshape(
+            disk.shape), disk, rtol=1e-4, atol=1e-5)
+    stats = runs["render"][1][runs["render"][1].index("Statistics:"):]
+    print(f"CLI: python -m statmc_tpu_torch, {WIDTH}x{HEIGHT}, "
+          "configs/render-for-ours.pbrt cut to maxdepth "
+          f"{MAXDEPTH} and {SPP} spp, 2 iterations: rc 0 in "
+          f"{runs['render'][0]:.1f} s, {len(files)} PFMs ("
+          f"{len(by_spp[SPP])} per iteration, all finite); --denoise with "
+          f"configs/denoise.pbrt: rc 0 in {runs['denoise'][0]:.1f} s; film-f"
+          f" against the in-memory denoise max |d| {worst:.3e}; launches "
+          f"in the subprocesses: render {out['render']}, --denoise "
+          f"{out['denoise']} [{card}]", flush=True)
+    print("CLI statistics: " + " | ".join(
+        ln.strip() for ln in stats.strip().splitlines()), flush=True)
+    return out
+
+
 def _print_build(cuda_build):
     """What the compiler and the runtime report for kernels B1 and B4:
     ptxas -v (registers, spills, shared memory; only when this process
@@ -1057,6 +1498,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     b1 = phase("B1", phase_b1, rng, card)
     b2 = phase("B2", phase_b2, rng, card, other)
     if kernels_only:
+        phase("B2 backward", phase_b2_backward, card)
         phase("B3/B4", phase_b3_b4, rng, card,
               phase("terrain setup", _terrain_renderer)[0].s, other)
         print("kernels only: no main path driven, no result lines",
@@ -1073,6 +1515,11 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     del filter_calls
     phase("small staircase", phase_small_reference, card, "staircase",
           scene_small())
+    rates = phase("samplers", phase_samplers, card)
+    b2b = phase("B2 backward", phase_b2_backward, card)
+    replay_s, replay_b1 = phase("reference parity", phase_reference_parity,
+                                card)
+    ck_launches = phase("checkpoint", phase_checkpoint, card)
     r, tl_launches, render_s = phase("terrain main path",
                                      phase_terrain_main_path, card)
     launches.update(tl_launches)
@@ -1089,6 +1536,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     del r
     phase("small terrain", phase_small_reference, card, "terrain",
           terrain_small())
+    cli = phase("CLI", phase_cli, card)
     cam = b34["camera"]
     kernels = [
         {"name": "B1 fused_intersect", "route": "cuda",
@@ -1111,7 +1559,15 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          # The same on the render's own inputs (iteration 2's denoise).
          "render_ms": b2r[True]["ms"], "render_plain_ms": b2r[True]["plain_ms"],
          "render_bound_ms": b2r[True]["bound_ms"],
-         "render_accepted": b2r[True]["accepted"]},
+         "render_accepted": b2r[True]["accepted"],
+         # As FilterApply's backward kernel (normalize=False) at 1280x720,
+         # r = 20: B2's launches in one forward + backward, its own time.
+         "filter_apply_launches": b2b["launches"], "backward_ms": b2b["ms"],
+         "backward_plain_ms": b2b["plain_ms"],
+         "backward_max_abs_err": b2b["err"],
+         "backward_bound_ms": b2b["bound_ms"],
+         "backward_bound_by": b2b["bound_by"],
+         "forward_backward_ms": b2b["fwd_bwd_ms"]},
         # B3/B4: ms and bound_ms on all `blocks` of the camera rays;
         # plain_ms on the `plain_blocks` blocks where the two were
         # compared (all for B3), and for B4 the kernel's subset_ms on them.
@@ -1135,6 +1591,10 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "plain_blocks": cam["plain_blocks"],
          "subset_ms": cam["walk_sub_ms"]},
     ]
+    print(json.dumps({"workflow": {
+        "sampler_rays_per_s": rates, "replay_s": replay_s,
+        "cli_launches": cli, "checkpoint_launches": ck_launches,
+        "replay_b1_checked": replay_b1}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,27 +160,37 @@ def _dot8(rows, ray, lo: int, hi: int):
     return plucker.chain(rows[:, lo:hi].T, ray[:, lo:hi].T)
 
 
-def intersect_plain(edge_table, plane_table, raye, rayp, t_max):
+def intersect_plain(edge_table, plane_table, raye, rayp, t_max,
+                    n_tris=None):
     """Plain PyTorch version of kernel B1: closest hit of every ray over
     all tiles.  raye/rayp [R,8], t_max [R] -> (t [R], id [R] int32) in
-    packed order; a miss keeps t_max and id -1."""
+    packed order; a miss keeps t_max and id -1.  n_tris, as for the
+    kernel, says that the rows from n_tris on are all-zero padding, which
+    can hit nothing and are skipped."""
     R = raye.shape[0]
     dev = raye.device
     best_t = t_max.clone()
     best_id = torch.full((R,), -1, dtype=torch.int32, device=dev)
     iota = torch.arange(TRI_TILE, dtype=torch.int32, device=dev)[:, None]
     big = torch.tensor(2 ** 30, dtype=torch.int32, device=dev)
-    for j in range(edge_table.shape[0]):
-        w0, w1, w2 = (_dot8(edge_table[j, k], raye, 0, 6) for k in range(3))
-        num = _dot8(plane_table[j, 0], rayp, 3, 7)
-        den = _dot8(plane_table[j, 1], rayp, 0, 3)
+    ntt = edge_table.shape[0]
+    if n_tris is not None:
+        ntt = min(ntt, -(-n_tris // TRI_TILE))
+    for j in range(ntt):
+        rows = slice(0, TRI_TILE if n_tris is None
+                     else min(TRI_TILE, n_tris - j * TRI_TILE))
+        w0, w1, w2 = (_dot8(edge_table[j, k, rows], raye, 0, 6)
+                      for k in range(3))
+        num = _dot8(plane_table[j, 0, rows], rayp, 3, 7)
+        den = _dot8(plane_table[j, 1, rows], rayp, 0, 3)
         inside = (((w0 >= 0) & (w1 >= 0) & (w2 >= 0))
                   | ((w0 <= 0) & (w1 <= 0) & (w2 <= 0)))
         safe = torch.abs(den) > 1e-12
         t = torch.where(safe, num / torch.where(safe, den, 1.0), 1e30)
         tc = torch.where(inside & (t > 1e-4), t, 1e30)  # [Tt, R]
         tmin = torch.min(tc, dim=0).values
-        amin = torch.min(torch.where(tc <= tmin, iota, big), dim=0).values
+        amin = torch.min(torch.where(tc <= tmin, iota[:tc.shape[0]], big),
+                         dim=0).values
         better = tmin < best_t
         best_t = torch.where(better, tmin, best_t)
         best_id = torch.where(better, amin + j * TRI_TILE, best_id)
@@ -198,7 +208,8 @@ def intersect_tiles(edge_table, plane_table, raye, rayp, t_max, packed=None,
     zero, which the kernel then does not walk; None: every row is
     tested."""
     if not raye.is_cuda:
-        return intersect_plain(edge_table, plane_table, raye, rayp, t_max)
+        return intersect_plain(edge_table, plane_table, raye, rayp, t_max,
+                               n_tris)
     R = raye.shape[0]
     ntt = edge_table.shape[0]
     nsub = ntt * (TRI_TILE // plucker.ST)

@@ -66,3 +66,22 @@ def moment_states(states: dict, device="cpu") -> dict:
     """{type: {n, mean, m2, m3, film_mean, ...}} -> tensors on `device`."""
     return {t: {k: torch.as_tensor(np.array(v), device=device)
                 for k, v in st.items()} for t, st in states.items()}
+
+
+def renderer_state(jr, tr) -> None:
+    """Carry a JAX-package Renderer's estimator state into the port's
+    Renderer `tr` (same scene): moment states, film, ray total, STAT
+    counters and the ACRR/SMIS feedback (avg_ls, win_b, win_l), with the
+    JAX package's pixel padding sliced off.  `tr` can then render the
+    next iteration from where `jr` stopped."""
+    P, dev = tr.P, tr.device
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    tr.states = {k: {f: t(v)[:, :P] for f, v in st.items()}
+                 for k, st in jr.states.items()}
+    for name in ("film_sum", "film_w", "avg_ls", "win_b", "win_l"):
+        setattr(tr, name, t(getattr(jr, name))[:P])
+    tr.ray_total = t(jr.ray_total)
+    tr.stats = {k: t(v) for k, v in jr.stats.items()}

@@ -1,6 +1,6 @@
 """Counter-based per-(pixel, sample, bounce, slot) random streams.
 
-Port of statmc_tpu/core/rng.py, random mode only.  Every draw is
+Port of statmc_tpu/core/rng.py.  In random mode every draw is
 addressed by coordinates and hashed with threefry2x32, bit-exact with
 ``jax.random`` under ``jax_threefry_partitionable=True`` (the JAX
 package's setting): ``fold_in(key, d)`` is threefry(key, (0, d)), and
@@ -8,12 +8,21 @@ package's setting): ``fold_in(key, d)`` is threefry(key, (0, d)), and
 counter (0, i), xors the two output words and keeps the top 23 bits as
 the mantissa of a float in [1, 2).
 
+The low-discrepancy modes (``draw_1d``/``draw_2d`` with MODE_02,
+MODE_HALTON, MODE_SOBOL) keep the draw-site addressing but replace the
+hash by a scrambled (0,2)-sequence, a rotated radical inverse or a
+scrambled Sobol' point; MODE_LOCKSTEP reads a table of the reference's
+serial PCG32 draws (core/lockstep.py).  Every mode is bit-exact with
+the JAX package's.
+
 uint32 arithmetic is emulated in int64 and masked to 32 bits, so keys
 are int64 tensors [..., 2] holding uint32 values.
 """
 from __future__ import annotations
 
 import torch
+
+from . import math as cm
 
 # Draw-site slot numbers (statmc_tpu/core/rng.py).
 SLOT_CAMERA = 0
@@ -24,6 +33,27 @@ SLOT_BSDF = 4
 SLOT_RR = 5
 SLOT_BSDF_COMPONENT = 6
 SLOT_BSDF_COMPONENT_PC = 7
+N_SLOTS = 8  # draw sites per bounce
+
+# Sampler modes (statmc_tpu/core/rng.py:171-201).
+MODE_RANDOM = 0
+MODE_02 = 1
+MODE_HALTON = 2
+MODE_LOCKSTEP = 3  # padded replay table of the reference's PCG32 streams
+MODE_LOCKSTEP_EXACT = 4  # conditional-consumption replay (lockstep_exact)
+MODE_SOBOL = 5
+
+SAMPLER_MODES = {
+    "random": MODE_RANDOM,
+    "stratified": MODE_02,
+    "02sequence": MODE_02,
+    "zerotwosequence": MODE_02,
+    "lowdiscrepancy": MODE_02,
+    "sobol": MODE_SOBOL,
+    "maxmindist": MODE_02,
+    "halton": MODE_HALTON,
+    "lockstep": MODE_LOCKSTEP,
+}
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -100,3 +130,188 @@ def uniform_2d(keys, bounce, slot: int):
     """[P, 2] uniforms (counters 0 and 1 under each lane's site key): the
     random-mode draw site draw_2d of statmc_tpu/core/rng.py."""
     return uniform(_site_keys(keys, bounce, slot), (2,))
+
+
+# ---------------------------------------------------------------------------
+# Low-discrepancy streams (statmc_tpu/core/rng.py:100-356).
+# ---------------------------------------------------------------------------
+
+_INV_2_32 = 1.0 / 4294967296.0
+
+
+def _vdc_bits(n):
+    """Bit-reversed 32-bit integers (van der Corput), n int64 of uint32."""
+    n = ((n << 16) | (n >> 16)) & _MASK
+    n = ((n & 0x00FF00FF) << 8) | ((n & 0xFF00FF00) >> 8)
+    n = ((n & 0x0F0F0F0F) << 4) | ((n & 0xF0F0F0F0) >> 4)
+    n = ((n & 0x33333333) << 2) | ((n & 0xCCCCCCCC) >> 2)
+    return ((n & 0x55555555) << 1) | ((n & 0xAAAAAAAA) >> 1)
+
+
+def _sobol2_bits(n):
+    """Second Sobol' dimension (direction numbers v, v ^= v >> 1)."""
+    result = torch.zeros_like(n)
+    v = 1 << 31
+    for _ in range(32):
+        result = torch.where((n & 1) == 1, result ^ v, result)
+        n = n >> 1
+        v ^= v >> 1
+    return result
+
+
+def _u32(x):
+    """An index (int tensor or Python int) as int64 holding uint32."""
+    if torch.is_tensor(x):
+        return x.to(torch.int64) & _MASK
+    return int(x) & _MASK
+
+
+def _unit(bits):
+    """uint32 bits -> float32 in [0, 1]: rounded to float32, times 2^-32."""
+    return bits.to(torch.float32) * _INV_2_32
+
+
+def pixel_scramble(key, pixel_ids):
+    """Per-pixel scramble words [P, 2], independent of the sample index."""
+    return fold_in(key.expand(pixel_ids.shape[0], 2),
+                   pixel_ids.to(torch.int64))
+
+
+def ld_camera_jitter(keys, sample_index):
+    """[P,2] (0,2)-sequence film jitter, per-pixel scrambled."""
+    s0, s1 = keys[:, 0], keys[:, 1]
+    n = torch.broadcast_to(torch.as_tensor(_u32(sample_index),
+                                           device=keys.device), s0.shape)
+    return torch.stack([_unit(_vdc_bits(n) ^ s0),
+                        _unit(_sobol2_bits(n) ^ s1)], dim=-1)
+
+
+def _primes(n: int):
+    import numpy as np
+
+    sieve = np.ones(20000, bool)
+    sieve[:2] = False
+    for i in range(2, 142):
+        if sieve[i]:
+            sieve[i * i:: i] = False
+    return np.nonzero(sieve)[0][:n].astype(np.int32)
+
+
+_PRIMES = {}  # device -> the first 1,100 primes, made once per device
+
+
+def _primes_table(device):
+    if device not in _PRIMES:
+        _PRIMES[device] = torch.as_tensor(_primes(1100).astype("int64"),
+                                          device=device)
+    return _PRIMES[device]
+
+
+def radical_inverse(base, n):
+    """Radical inverse of n in `base` (int tensors, broadcast), float32 as
+    the JAX package rounds it: rd * base + digit is one fused
+    multiply-add in XLA's compiled CPU code."""
+    base, n = torch.broadcast_tensors(base.to(torch.int64), n.to(torch.int64))
+    base_f = base.to(torch.float32)
+    rd = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv = torch.ones(n.shape, dtype=torch.float32, device=n.device)
+    for _ in range(32):
+        nxt = torch.div(n, base, rounding_mode="floor")
+        digit = n - nxt * base
+        live = n > 0
+        rd = torch.where(live, cm.fma(rd, base_f, digit.to(torch.float32)),
+                         rd)
+        inv = torch.where(live, inv / base_f, inv)
+        n = nxt
+    return rd * inv
+
+
+def _ld_fold(scramble_keys, bounce, slot: int):
+    return _site_keys(scramble_keys, bounce, slot)
+
+
+# Lockstep table layout (core/lockstep.py): 5 camera dims, then 8 per
+# bounce; the BxDF component choice reuses x of the 2D sample it remaps
+# (pbrt's BSDF::Sample_f).
+_LOCKSTEP_POS = {
+    SLOT_CAMERA: (0, 1),
+    SLOT_LIGHT_SELECT: (5 + 0,),
+    SLOT_LIGHT_SAMPLE: (5 + 1, 5 + 2),
+    SLOT_BSDF_COMPONENT: (5 + 3,),
+    SLOT_BSDF_NEE: (5 + 3, 5 + 4),
+    SLOT_BSDF_COMPONENT_PC: (5 + 5,),
+    SLOT_BSDF: (5 + 5, 5 + 6),
+    SLOT_RR: (5 + 7,),
+}
+
+
+def _lockstep_draw(ld, bounce, slot: int) -> list:
+    """Values for (bounce, slot) from a lockstep table: ld = (tab
+    [P,S,D], n), n and bounce scalar or [P]."""
+    tab, n = ld
+    P, S, D = tab.shape
+    dev = tab.device
+    nn = torch.clamp(torch.broadcast_to(
+        torch.as_tensor(n, device=dev).to(torch.int64), (P,)), 0, S - 1)
+    row = torch.gather(tab, 1, nn[:, None, None].expand(P, 1, D))[:, 0]
+    if slot == SLOT_CAMERA:
+        offs = torch.zeros((P,), dtype=torch.int64, device=dev)
+    else:
+        offs = 8 * torch.broadcast_to(
+            torch.as_tensor(bounce, device=dev).to(torch.int64), (P,))
+    return [torch.gather(row, 1, torch.clamp(offs + pos, 0, D - 1)[:, None])
+            [:, 0] for pos in _LOCKSTEP_POS[slot]]
+
+
+def _halton(words, n, bounce, slot: int, k: int, cap: int):
+    """Rotated radical inverse of dimension 2 (bounce N_SLOTS + slot) + k,
+    the dimension capped at `cap` (the JAX package caps a 1D draw's at
+    1099, a 2D draw's at 1098 and 1099)."""
+    dev = words.device
+    dim = 2 * (torch.as_tensor(bounce, device=dev).to(torch.int64) * N_SLOTS
+               + slot) + k
+    base = _primes_table(dev)[torch.clamp(dim, max=cap)]
+    h = radical_inverse(base, torch.as_tensor(n, device=dev))
+    return torch.remainder(h + _unit(words[:, k]), 1.0)
+
+
+def _ld_draw(words, mode: int, n, bounce, slot: int, k: int,
+             cap: int = 1099):
+    """Component k (0 or 1) of an LD draw at (bounce, slot)."""
+    if mode == MODE_HALTON:
+        return _halton(words, n, bounce, slot, k, cap)
+    dev = words.device
+    nn = torch.broadcast_to(torch.as_tensor(_u32(n), device=dev),
+                            words[:, 0].shape)
+    if mode == MODE_02:
+        bits = _vdc_bits(nn) if k == 0 else _sobol2_bits(nn)
+        return _unit(bits ^ words[:, k])
+    from . import sobol as sbl
+
+    dim = 2 * (torch.as_tensor(bounce, device=dev).to(torch.int64) * N_SLOTS
+               + slot) + k
+    return sbl.sobol_1d(torch.broadcast_to(dim, nn.shape), nn, words[:, k])
+
+
+def draw_1d(keys, ld, mode: int, bounce, slot: int):
+    """One uniform per lane at draw site (bounce, slot) under `mode`;
+    ld = (scramble keys [P,2], sample index), a lockstep (table, index),
+    or None (random)."""
+    if mode == MODE_LOCKSTEP and ld is not None:
+        return _lockstep_draw(ld, bounce, slot)[0]
+    if mode == MODE_RANDOM or ld is None:
+        return uniform_1d(keys, bounce, slot)
+    scr, n = ld
+    return _ld_draw(_ld_fold(scr, bounce, slot), mode, n, bounce, slot, 0)
+
+
+def draw_2d(keys, ld, mode: int, bounce, slot: int):
+    """[P,2] uniforms at draw site (bounce, slot) under `mode`."""
+    if mode == MODE_LOCKSTEP and ld is not None:
+        return torch.stack(_lockstep_draw(ld, bounce, slot), dim=-1)
+    if mode == MODE_RANDOM or ld is None:
+        return uniform_2d(keys, bounce, slot)
+    scr, n = ld
+    words = _ld_fold(scr, bounce, slot)
+    return torch.stack([_ld_draw(words, mode, n, bounce, slot, k, 1098 + k)
+                        for k in (0, 1)], dim=-1)

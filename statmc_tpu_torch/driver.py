@@ -8,7 +8,13 @@ into the next iteration's ACRR/SMIS decisions
 chosen device throughout; the moment states are updated in place, block
 by block.
 
-Entry point: ``load(path, device=...).render(iterations=...)``.
+Entry points: ``load(path, device=...).render(iterations=...)`` and the
+command line, ``python -m statmc_tpu_torch`` (__main__.py).  Path
+regeneration (make_regen_chunk_fn) renders every sampler mode but the
+lockstep table, which pins the per-sample driver (make_chunk_fn);
+``Renderer.render_lockstep_exact`` replays the reference's own draw
+streams; ``denoise_from_disk`` re-filters a written PFM set; and
+``save_checkpoint``/``restore_checkpoint`` resume a render bit for bit.
 """
 from __future__ import annotations
 
@@ -26,11 +32,11 @@ from .accel.twolevel import TwoLevelTris
 from .core import rng as crng
 from .core import spectrum as spec
 from .denoise.filter import StatDenoiser
-from .io.pfm import write_pfm
+from .io.pfm import read_pfm, write_pfm
 from .io.progress import ProgressReporter
 from .render import camera as CAM
 from .render.albedo_lut import precompute_material_curves
-from .render.integrator import IntegratorConfig, trace_wavefront
+from .render.integrator import IntegratorConfig, trace, trace_wavefront
 from .render.lightdistrib import make_distribution
 from .scene.api import SceneDescription, parse_scene
 from .scene.build import SceneTables, build_scene
@@ -42,7 +48,6 @@ from .stats import moments
 PIXEL_BLOCK = 1 << 20
 
 # Port queue items in ROADMAP.md that the NotImplementedError gates name.
-_ITEM_LD = "LD samplers"
 _ITEM_TEX = "Textures"
 _ITEM_REST = "Rest of slice 4"
 
@@ -62,6 +67,7 @@ class RenderSetup:
     base_seed: int = 0
     pixel_mask: Any = None  # [P] bool crop (integrator pixelbounds)
     albedo_luts: Any = None  # (lut_d [M,K,3], lut_rest [M,K,3]) or None
+    lockstep_tab: Any = None  # [P,S,D] pbrt-stream replay (core/lockstep.py)
 
 
 def _unported(feature: str, item: str) -> NotImplementedError:
@@ -77,8 +83,6 @@ def _check_supported(desc: SceneDescription) -> None:
         raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_REST)
     if desc.integrator_name == "volpath" and desc.named_media:
         raise _unported("participating media (volpath)", _ITEM_REST)
-    if desc.sampler_name != "random":
-        raise _unported(f'Sampler "{desc.sampler_name}"', _ITEM_LD)
     if getattr(desc, "accelerator_name", "bvh") == "kdtree":
         raise _unported('Accelerator "kdtree"', _ITEM_REST)
     if desc.camera_name == "realistic":
@@ -192,10 +196,13 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
         enable_smis=ecfg.enable_smis,
         enable_acrr=ecfg.enable_acrr,
         rr_threshold=ecfg.rr_threshold,
+        sampler_mode=crng.SAMPLER_MODES.get(desc.sampler_name,
+                                            crng.MODE_RANDOM),
         cone0=cone0,
         cone_spread=cone_spread,
         direct_only=direct_only,
         null_extra=8 if has_null else 0,
+        mat_types=frozenset(np.unique(scene_np.mat_type).tolist()),
     )
 
     pb = desc.integrator_params.find_ints("pixelbounds")
@@ -219,16 +226,108 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
     scene = scene_np.to_device(device)
     albedo_luts = (precompute_material_curves(scene)
                    if ecfg.configs[E.STAT_ALBEDO].enable else None)
+
+    # Lockstep sampler: the reference's serial PCG32 draw streams as a
+    # (pixel, sample, dim) table (core/lockstep.py), for parity runs.
+    lockstep_tab = None
+    if desc.sampler_name == "lockstep":
+        from .core import lockstep as LS
+
+        total_spp = (pixel_samples << (ecfg.iterations - 1)
+                     if ecfg.exp_iterations
+                     else pixel_samples * ecfg.iterations)
+        D = LS.dims_per_sample(ecfg.max_depth + 1)
+        nbytes = width * height * total_spp * D * 4
+        if nbytes > 1 << 29:
+            raise ValueError(
+                "lockstep sampler table would need "
+                f"{nbytes / 1e9:.1f} GB; lockstep mode is for parity "
+                "runs at reduced resolution/spp")
+        lockstep_tab = torch.as_tensor(LS.make_table(
+            width, height, total_spp, ecfg.max_depth + 1, base_seed),
+            device=device)
     return RenderSetup(
         scene=scene, bvh=bvh, dist=dist, cam=cam, icfg=icfg, ecfg=ecfg,
         width=width, height=height, filename=filename, device=device,
-        base_seed=base_seed, pixel_mask=pixel_mask, albedo_luts=albedo_luts)
+        base_seed=base_seed, pixel_mask=pixel_mask, albedo_luts=albedo_luts,
+        lockstep_tab=lockstep_tab)
 
 
 def zero_stats(device) -> dict:
     return {k: torch.zeros((), device=device)
             for k in ("n_camera_rays", "zero_paths", "total_paths",
                       "path_len_sum", "path_len_max")}
+
+
+def _count_stats(sa: dict, out, df) -> None:
+    """STAT counters (core/stats.h; statpath.cpp:29-31) of the samples
+    that finished in lanes df [P] float: nCameraRays, zero-radiance
+    paths, total paths, path-length sum and maximum."""
+    L = out.ls[:, 0, :]
+    sa["n_camera_rays"] = sa["n_camera_rays"] + torch.sum(df)
+    sa["zero_paths"] = sa["zero_paths"] + torch.sum(
+        df * (torch.sum(L, -1) == 0.0))
+    sa["total_paths"] = sa["total_paths"] + torch.sum(df)
+    sa["path_len_sum"] = sa["path_len_sum"] + torch.sum(out.path_len * df)
+    sa["path_len_max"] = torch.maximum(sa["path_len_max"],
+                                       torch.max(out.path_len * df))
+
+
+def make_chunk_fn(setup: RenderSetup):
+    """Per-sample chunk function (statmc_tpu/driver.py:make_sample_fn and
+    make_chunk_fn): for each of `n_samples` samples, every pixel block
+    traces one sample per lane through ``integrator.trace``.  Same
+    signature and results as make_regen_chunk_fn; the lockstep sampler
+    pins it, since its table is addressed by sample."""
+    icfg, ecfg, cam = setup.icfg, setup.ecfg, setup.cam
+    W, P = setup.width, setup.width * setup.height
+    dev = setup.device
+    mode = icfg.sampler_mode
+
+    def chunk(states, film_sum, film_w, ray_total, stats_acc, base_key,
+              sample_start: int, avg_ls, win_b, win_l, feedback_on: bool,
+              n_samples: int):
+        for s in range(n_samples):
+            sample_index = sample_start + s
+            for start in range(0, P, PIXEL_BLOCK):
+                end = min(start + PIXEL_BLOCK, P)
+                ids = torch.arange(start, end, dtype=torch.int32, device=dev)
+                keys = crng.pixel_keys(base_key, ids, sample_index)
+                ld = None
+                if mode == crng.MODE_LOCKSTEP:
+                    ld = (setup.lockstep_tab[start:end], sample_index)
+                elif mode != crng.MODE_RANDOM:
+                    ld = (crng.pixel_scramble(base_key, ids), sample_index)
+                u_cam = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_CAMERA)
+                pxy = torch.stack([(ids % W).to(torch.float32),
+                                   (ids // W).to(torch.float32)], dim=-1)
+                o, d = CAM.generate_rays(cam, pxy + u_cam)
+                out = trace(setup.scene, setup.bvh, setup.dist, icfg, o, d,
+                            keys, avg_ls[start:end], win_b[start:end],
+                            win_l[start:end], feedback_on,
+                            albedo_luts=setup.albedo_luts, ld_stream=ld)
+                L = out.ls[:, 0, :]
+                _count_stats(stats_acc, out,
+                             torch.ones((end - start,), device=dev))
+                st = {t: {k: v[:, start:end] for k, v in st.items()}
+                      for t, st in states.items()}
+                if setup.pixel_mask is not None:
+                    mask = setup.pixel_mask[start:end]
+                    mf = mask.to(torch.float32)
+                    film_sum[start:end] += L * mf[:, None]
+                    film_w[start:end] += mf
+                else:
+                    mask = None
+                    film_sum[start:end] += L
+                    film_w[start:end] += 1.0
+                st = E.update_states(st, ecfg, out, mask)
+                for t, stt in st.items():
+                    for k, v in stt.items():
+                        states[t][k][:, start:end] = v
+                ray_total = ray_total + torch.sum(out.n_rays)
+        return ray_total
+
+    return chunk
 
 
 def make_regen_chunk_fn(setup: RenderSetup):
@@ -267,16 +366,7 @@ def make_regen_chunk_fn(setup: RenderSetup):
                 fw_b.copy_(fw_b + mf)
                 blk["st"] = E.update_states(blk["st"], ecfg, out, m)
                 blk["rt"] = blk["rt"] + torch.sum(out.n_rays)
-                df = done.to(torch.float32)
-                sa = stats_acc
-                sa["n_camera_rays"] = sa["n_camera_rays"] + torch.sum(df)
-                sa["zero_paths"] = sa["zero_paths"] + torch.sum(
-                    df * (torch.sum(L, -1) == 0.0))
-                sa["total_paths"] = sa["total_paths"] + torch.sum(df)
-                sa["path_len_sum"] = sa["path_len_sum"] + torch.sum(
-                    out.path_len * df)
-                sa["path_len_max"] = torch.maximum(
-                    sa["path_len_max"], torch.max(out.path_len * df))
+                _count_stats(stats_acc, out, done.to(torch.float32))
 
             trace_wavefront(
                 setup.scene, setup.bvh, setup.dist, icfg, gen_ray, ids,
@@ -299,7 +389,11 @@ class Renderer:
     def __init__(self, setup: RenderSetup):
         self.s = setup
         self.device = setup.device
-        self.chunk_fn = make_regen_chunk_fn(setup)
+        # Path regeneration is the product path; the lockstep table pins
+        # the per-sample driver (statmc_tpu/driver.py:733-744).
+        self.chunk_fn = (make_chunk_fn(setup)
+                         if setup.icfg.sampler_mode == crng.MODE_LOCKSTEP
+                         else make_regen_chunk_fn(setup))
         self.denoiser = (
             StatDenoiser(setup.ecfg, setup.width, setup.height,
                          device=setup.device)
@@ -324,6 +418,19 @@ class Renderer:
         self.derived = {}
         self.film_f = None
         self.base_key = crng.base_key(s.base_seed, device=dev)
+
+    def render_lockstep_exact(self, spp: int | None = None):
+        """Exact serial-consumption lockstep replay: every draw site reads
+        the reference's per-tile PCG32 stream at its serial position
+        (render/lockstep_exact.py).  A parity instrument."""
+        from .render.lockstep_exact import render_exact
+
+        s = self.s
+        cfg = s.icfg._replace(sampler_mode=crng.MODE_LOCKSTEP_EXACT)
+        return render_exact(
+            s.scene, s.bvh, s.dist, cfg, s.cam, s.width, s.height,
+            spp if spp is not None else s.ecfg.pixel_samples,
+            s.base_seed, albedo_luts=s.albedo_luts)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -470,12 +577,90 @@ class Renderer:
                 written.append(path)
         return written
 
+    def print_stats(self, file=None):
+        """PrintStats(stdout) (core/stats.cpp; the counters statpath
+        registers at statpath.cpp:29-31), in the JAX package's text."""
+        import sys
+
+        f = file or sys.stdout
+        st = {k: float(v) for k, v in self.stats.items()}
+        total = max(st["total_paths"], 1.0)
+        print("Statistics:", file=f)
+        print("  Integrator", file=f)
+        print(f"    Camera rays traced {int(st['n_camera_rays'])}", file=f)
+        print(f"    Zero-radiance paths {int(st['zero_paths'])} / "
+              f"{int(st['total_paths'])} "
+              f"({100.0 * st['zero_paths'] / total:.2f}%)", file=f)
+        print(f"    Path length: avg {st['path_len_sum'] / total:.3f}, "
+              f"max {int(st['path_len_max'])}", file=f)
+
+    def denoise_from_disk(self, out_dir: str, iteration: int) -> list[str]:
+        """--denoise mode: read a written buffer set back by its file names
+        and run only the filter (statpath.cpp:456-550); the sufficient
+        statistics on disk are a complete checkpoint of the estimator.
+        Returns the files written."""
+        import glob as globmod
+
+        s = self.s
+        stem = os.path.splitext(os.path.basename(s.filename))[0]
+        prefix = os.path.join(out_dir,
+                              f"{stem}-{self.total_spp(iteration)}-")
+        dev = self.device
+
+        film_path = prefix + "film.pfm"
+        if os.path.exists(film_path):
+            img = read_pfm(film_path).reshape(-1, 3)
+            self.film_sum = torch.as_tensor(img, device=dev).clone()
+            self.film_w = torch.ones((self.P,), device=dev)
+
+        suffix_field = {"n": "n", "mean": "mean", "m2": "m2", "m3": "m3",
+                        "film-mean": "film_mean", "film-m2": "film_m2"}
+        pat = re.compile(r"t(\d+)-b(\d+)-(.+)$")
+        index_to_type = {c.index: c.type for c in s.ecfg.configs if c.enable}
+        for path in globmod.glob(prefix + "*.pfm"):
+            name = os.path.basename(path)[len(os.path.basename(prefix)):-4]
+            m = pat.match(name)
+            if not m:
+                continue
+            t_idx, b_idx, suffix = int(m.group(1)), int(m.group(2)), m.group(3)
+            field = suffix_field.get(suffix)
+            if field is None or t_idx not in index_to_type:
+                continue
+            st = self.states[index_to_type[t_idx]]
+            if field not in st:
+                continue
+            arr = torch.as_tensor(read_pfm(path), device=dev)
+            st[field][b_idx] = arr.reshape(self.P, st[field].shape[-1])
+        self._denoise()
+        return self.write_outputs(out_dir, iteration)
+
+    # -- Device-state checkpoints -------------------------------------------
+    # torch.save of a plain dict of tensors, read back with weights_only:
+    # the estimator's sufficient statistics, the film, the counters and
+    # the ACRR/SMIS feedback, so a resumed render equals an uninterrupted
+    # one bit for bit (counter-addressed draws).
+
+    _CHECKPOINTED = ("states", "film_sum", "film_w", "ray_total", "stats",
+                     "avg_ls", "win_b", "win_l")
+
+    def save_checkpoint(self, path: str, next_iteration: int):
+        tree = {k: getattr(self, k) for k in self._CHECKPOINTED}
+        tree["next_iteration"] = next_iteration
+        torch.save(tree, path)
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restores the estimator's state; returns the next iteration."""
+        tree = torch.load(path, map_location=self.device, weights_only=True)
+        for k in self._CHECKPOINTED:
+            setattr(self, k, tree[k])
+        return int(tree["next_iteration"])
+
     def render(self, iterations: int | None = None,
-               out_dir: str | None = None, verbose: bool = True
-               ) -> list[dict]:
+               out_dir: str | None = None, verbose: bool = True,
+               start_iteration: int = 1) -> list[dict]:
         n_it = iterations or self.s.ecfg.iterations
         logs = []
-        for i in range(1, n_it + 1):
+        for i in range(start_iteration, n_it + 1):
             log = self.run_iteration(i)
             if out_dir is not None:
                 t0 = time.perf_counter()

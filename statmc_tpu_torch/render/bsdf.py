@@ -330,80 +330,99 @@ def _fresnel_blend_f(kd, ks, wo, wi, ax, ay):
 # Material dispatch: evaluate / sample over lanes
 # --------------------------------------------------------------------------
 
-def evaluate(m: MaterialLanes, wo, wi):
+def _has(present, *types) -> bool:
+    """Whether any of `types` can occur among the lanes: `present` is the
+    set of material types of the scene's tables (None: any type)."""
+    return present is None or not present.isdisjoint(types)
+
+
+def evaluate(m: MaterialLanes, wo, wi, present=None):
     """(f [R,3], pdf [R]) of the non-delta lobes; zero for delta
-    materials (BSDF::f + BSDF::Pdf over BSDF_ALL & ~BSDF_SPECULAR)."""
+    materials (BSDF::f + BSDF::Pdf over BSDF_ALL & ~BSDF_SPECULAR).
+    `present` (a set of MAT_* or None) skips the families no lane can
+    have; the lanes' values are the same either way."""
     refl = same_hemisphere(wo, wi)
     ax = torch.clamp(m.rough_u, min=1e-3)
     ay = torch.clamp(m.rough_v, min=1e-3)
     ci = abs_cos_theta(wi)
-
-    lam_f = m.kd * INV_PI
-    on_f = _oren_nayar_f(m.kd, m.sigma, wo, wi)
-    matte_f = torch.where((m.sigma > 0)[..., None], on_f, lam_f)
     lam_pdf = torch.where(refl, ci * INV_PI, 0.0)
+    fams = []  # (type, f, pdf) of the families that can occur
 
-    F_cond = fresnel_conductor(cos_theta(wi), m.eta, m.k)
-    metal_f = _microfacet_reflection_f(wo, wi, ax, ay, F_cond)
-    mf_pdf = _microfacet_pdf(wo, wi, ax, ay)
+    if _has(present, sb.MAT_MATTE, sb.MAT_TRANSLUCENT):
+        lam_f = m.kd * INV_PI
+        on_f = _oren_nayar_f(m.kd, m.sigma, wo, wi)
+        matte_f = torch.where((m.sigma > 0)[..., None], on_f, lam_f)
+        fams += [(sb.MAT_MATTE, matte_f, lam_pdf),
+                 (sb.MAT_TRANSLUCENT, matte_f, lam_pdf)]
 
-    wh = cm.normalize(wo + wi)
-    F_diel = fresnel_dielectric(cm.dot(wi, wh), 1.0, 1.5)[..., None]
-    plastic_spec = _microfacet_reflection_f(wo, wi, ax, ay, F_diel * m.ks)
-    plastic_f = m.kd * INV_PI + plastic_spec
-    plastic_pdf = 0.5 * (lam_pdf + mf_pdf)
+    if _has(present, sb.MAT_METAL, sb.MAT_PLASTIC, sb.MAT_UBER,
+            sb.MAT_SUBSTRATE, sb.MAT_DISNEY, sb.MAT_GLASS):
+        mf_pdf = _microfacet_pdf(wo, wi, ax, ay)
+    if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_DISNEY,
+            sb.MAT_GLASS):
+        wh = cm.normalize(wo + wi)
 
-    substrate_f = _fresnel_blend_f(m.kd, m.ks, wo, wi, ax, ay)
-    substrate_pdf = 0.5 * (lam_pdf + mf_pdf)
+    if _has(present, sb.MAT_DISNEY):
+        # Disney principled (materials/disney.cpp, main lobes); metallic
+        # rides the sigma slot.
+        metallic = torch.clamp(m.sigma, 0.0, 1.0)[..., None]
+        rough_lin = cm.sqrt(ax)[..., None]
+        cosd = cm.dot(wi, wh)
+        co_a = torch.clamp(abs_cos_theta(wo), min=1e-7)
+        ci_a = torch.clamp(ci, min=1e-7)
+        fl = _pow5(1.0 - ci_a)
+        fv = _pow5(1.0 - co_a)
+        fd90 = (0.5 + 2.0 * rough_lin * (cosd ** 2)[..., None])
+        burley = m.kd * INV_PI * (1.0 + (fd90 - 1.0) * fl[..., None]) \
+            * (1.0 + (fd90 - 1.0) * fv[..., None])
+        f0 = 0.04 * (1.0 - metallic) + m.kd * metallic
+        f_schlick = f0 + (1.0 - f0) * _pow5(1.0 - torch.abs(cosd))[..., None]
+        disney_spec = _microfacet_reflection_f(wo, wi, ax, ay, f_schlick)
+        disney_f = (1.0 - metallic) * burley + disney_spec
+        fams.append((sb.MAT_DISNEY, disney_f, 0.5 * (lam_pdf + mf_pdf)))
 
-    # Disney principled (materials/disney.cpp, main lobes); metallic
-    # rides the sigma slot.
-    metallic = torch.clamp(m.sigma, 0.0, 1.0)[..., None]
-    rough_lin = cm.sqrt(ax)[..., None]
-    cosd = cm.dot(wi, wh)
-    co_a = torch.clamp(abs_cos_theta(wo), min=1e-7)
-    ci_a = torch.clamp(ci, min=1e-7)
-    fl = _pow5(1.0 - ci_a)
-    fv = _pow5(1.0 - co_a)
-    fd90 = (0.5 + 2.0 * rough_lin * (cosd ** 2)[..., None])
-    burley = m.kd * INV_PI * (1.0 + (fd90 - 1.0) * fl[..., None]) \
-        * (1.0 + (fd90 - 1.0) * fv[..., None])
-    f0 = 0.04 * (1.0 - metallic) + m.kd * metallic
-    f_schlick = f0 + (1.0 - f0) * _pow5(1.0 - torch.abs(cosd))[..., None]
-    disney_spec = _microfacet_reflection_f(wo, wi, ax, ay, f_schlick)
-    disney_f = (1.0 - metallic) * burley + disney_spec
-    disney_pdf = 0.5 * (lam_pdf + mf_pdf)
+    if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER):
+        F_diel = fresnel_dielectric(cm.dot(wi, wh), 1.0, 1.5)[..., None]
+        plastic_spec = _microfacet_reflection_f(wo, wi, ax, ay,
+                                                F_diel * m.ks)
+        plastic_f = m.kd * INV_PI + plastic_spec
+        plastic_pdf = 0.5 * (lam_pdf + mf_pdf)
+        fams += [(sb.MAT_PLASTIC, plastic_f, plastic_pdf),
+                 (sb.MAT_UBER, plastic_f, plastic_pdf)]
+
+    if _has(present, sb.MAT_METAL):
+        F_cond = fresnel_conductor(cos_theta(wi), m.eta, m.k)
+        metal_f = _microfacet_reflection_f(wo, wi, ax, ay, F_cond)
+        fams.append((sb.MAT_METAL, metal_f, mf_pdf))
+
+    if _has(present, sb.MAT_SUBSTRATE):
+        substrate_f = _fresnel_blend_f(m.kd, m.ks, wo, wi, ax, ay)
+        fams.append((sb.MAT_SUBSTRATE, substrate_f,
+                     0.5 * (lam_pdf + mf_pdf)))
 
     t = m.mat_type
     f = torch.zeros_like(m.kd)
     pdf = torch.zeros_like(ci)
-    for mt, ff, pp in (
-        (sb.MAT_MATTE, matte_f, lam_pdf),
-        (sb.MAT_TRANSLUCENT, matte_f, lam_pdf),
-        (sb.MAT_DISNEY, disney_f, disney_pdf),
-        (sb.MAT_PLASTIC, plastic_f, plastic_pdf),
-        (sb.MAT_UBER, plastic_f, plastic_pdf),
-        (sb.MAT_METAL, metal_f, mf_pdf),
-        (sb.MAT_SUBSTRATE, substrate_f, substrate_pdf),
-    ):
+    for mt, ff, pp in fams:
         sel = t == mt
         f = torch.where(sel[..., None], ff, f)
         pdf = torch.where(sel, pp, pdf)
     f = torch.where(refl[..., None], f, 0.0)
     pdf = torch.where(refl, pdf, 0.0)
 
-    # Rough glass: microfacet reflection + transmission.
-    rough_glass = (t == sb.MAT_GLASS) & (m.rough_u >= 1e-4)
-    eta0 = m.eta[..., 0]
-    F_wh = fresnel_dielectric(cm.dot(wi, wh), 1.0, eta0)[..., None]
-    rg_refl = _microfacet_reflection_f(wo, wi, ax, ay, F_wh * m.kr)
-    rg_refl = torch.where(refl[..., None], rg_refl, 0.0)
-    rg_trans = _microfacet_transmission_f(wo, wi, ax, ay, m.kt, eta0)
-    rg_f = rg_refl + rg_trans
-    rg_pdf = 0.5 * (torch.where(refl, mf_pdf, 0.0)
-                    + _microfacet_transmission_pdf(wo, wi, ax, ay, eta0))
-    f = torch.where(rough_glass[..., None], rg_f, f)
-    pdf = torch.where(rough_glass, rg_pdf, pdf)
+    if _has(present, sb.MAT_GLASS):
+        # Rough glass: microfacet reflection + transmission.
+        rough_glass = (t == sb.MAT_GLASS) & (m.rough_u >= 1e-4)
+        eta0 = m.eta[..., 0]
+        F_wh = fresnel_dielectric(cm.dot(wi, wh), 1.0, eta0)[..., None]
+        rg_refl = _microfacet_reflection_f(wo, wi, ax, ay, F_wh * m.kr)
+        rg_refl = torch.where(refl[..., None], rg_refl, 0.0)
+        rg_trans = _microfacet_transmission_f(wo, wi, ax, ay, m.kt, eta0)
+        rg_f = rg_refl + rg_trans
+        rg_pdf = 0.5 * (torch.where(refl, mf_pdf, 0.0)
+                        + _microfacet_transmission_pdf(wo, wi, ax, ay, eta0))
+        f = torch.where(rough_glass[..., None], rg_f, f)
+        pdf = torch.where(rough_glass, rg_pdf, pdf)
 
     delta = is_specular(m)
     return (torch.where(delta[..., None], 0.0, f),
@@ -418,83 +437,90 @@ class BSDFSample(NamedTuple):
     transmission: Any  # [R] bool
 
 
-def sample(m: MaterialLanes, wo, u2, uc) -> BSDFSample:
-    """BSDF::Sample_f over lanes. u2: [R,2], uc: [R] lobe selector."""
+def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
+    """BSDF::Sample_f over lanes. u2: [R,2], uc: [R] lobe selector;
+    `present` as for evaluate."""
     ax = torch.clamp(m.rough_u, min=1e-3)
     ay = torch.clamp(m.rough_v, min=1e-3)
+    t = m.mat_type
+    falses = torch.zeros_like(t, dtype=torch.bool)
 
     # Candidate A: cosine hemisphere (diffuse lobes).
     wi_cos = cosine_sample_hemisphere(u2)
     flip_z = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
-    wi_cos = torch.where(wo[..., 2:3] < 0, wi_cos * flip_z, wi_cos)
+    wi = torch.where(wo[..., 2:3] < 0, wi_cos * flip_z, wi_cos)
 
-    # Candidate B: microfacet half-vector.
-    wh = tr_sample_wh(wo, u2, ax, ay)
-    wi_mf = 2.0 * cm.dot(wo, wh)[..., None] * wh - wo
-
-    # Candidate C: mirror reflection.
-    wi_spec = reflect_local(wo)
-
-    # Candidate D: refraction (glass).
-    eta0 = m.eta[..., 0]
-    F = fresnel_dielectric(cos_theta(wo), 1.0, eta0)
-    entering = cos_theta(wo) > 0
-    eta_rel = torch.where(entering, 1.0 / eta0, eta0)
-    zero = torch.zeros_like(wo[..., 0])
-    n_loc = torch.stack([zero, zero, torch.where(entering, 1.0, -1.0)], -1)
-    ci = cm.dot(n_loc, wo)
-    s2t = torch.clamp(1.0 - ci * ci, min=0.0) * eta_rel * eta_rel
-    tir = s2t >= 1.0
-    ct = cm.sqrt(torch.clamp(1.0 - s2t, min=0.0))
-    wi_refr = -wo * eta_rel[..., None] + (eta_rel * ci - ct)[..., None] * n_loc
-
-    t = m.mat_type
-    two_lobe = ((t == sb.MAT_PLASTIC) | (t == sb.MAT_UBER)
-                | (t == sb.MAT_SUBSTRATE) | (t == sb.MAT_DISNEY))
-    metal = t == sb.MAT_METAL
+    glossy = _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_SUBSTRATE,
+                  sb.MAT_DISNEY, sb.MAT_METAL, sb.MAT_GLASS)
+    has_glass = _has(present, sb.MAT_GLASS)
     mirror = t == sb.MAT_MIRROR
-    glass = (t == sb.MAT_GLASS) & (m.rough_u < 1e-4)
-    rough_glass = (t == sb.MAT_GLASS) & (m.rough_u >= 1e-4)
+    glass = rough_glass = choose_mf_refr = choose_refr = falses
+    if glossy:
+        # Candidate B: microfacet half-vector.
+        wh = tr_sample_wh(wo, u2, ax, ay)
+        wi_mf = 2.0 * cm.dot(wo, wh)[..., None] * wh - wo
+        two_lobe = ((t == sb.MAT_PLASTIC) | (t == sb.MAT_UBER)
+                    | (t == sb.MAT_SUBSTRATE) | (t == sb.MAT_DISNEY))
+        metal = t == sb.MAT_METAL
+    if has_glass:
+        # Candidate D: refraction (glass).
+        eta0 = m.eta[..., 0]
+        F = fresnel_dielectric(cos_theta(wo), 1.0, eta0)
+        entering = cos_theta(wo) > 0
+        eta_rel = torch.where(entering, 1.0 / eta0, eta0)
+        zero = torch.zeros_like(wo[..., 0])
+        n_loc = torch.stack([zero, zero, torch.where(entering, 1.0, -1.0)],
+                            -1)
+        ci = cm.dot(n_loc, wo)
+        s2t = torch.clamp(1.0 - ci * ci, min=0.0) * eta_rel * eta_rel
+        tir = s2t >= 1.0
+        ct = cm.sqrt(torch.clamp(1.0 - s2t, min=0.0))
+        wi_refr = (-wo * eta_rel[..., None]
+                   + (eta_rel * ci - ct)[..., None] * n_loc)
+        glass = (t == sb.MAT_GLASS) & (m.rough_u < 1e-4)
+        rough_glass = (t == sb.MAT_GLASS) & (m.rough_u >= 1e-4)
 
-    # Rough glass refraction through the sampled microfacet normal.
-    ci_wh = cm.dot(wo, wh)
-    eta_rel_wh = torch.where(ci_wh > 0, 1.0 / eta0, eta0)
-    wh_f = torch.where((ci_wh < 0)[..., None], -wh, wh)
-    ci_whf = torch.abs(ci_wh)
-    s2t_wh = torch.clamp(1.0 - ci_whf * ci_whf, min=0.0) * eta_rel_wh ** 2
-    ct_wh = cm.sqrt(torch.clamp(1.0 - s2t_wh, min=0.0))
-    wi_mf_refr = (-wo * eta_rel_wh[..., None]
-                  + (eta_rel_wh * ci_whf - ct_wh)[..., None] * wh_f)
+        # Rough glass refraction through the sampled microfacet normal.
+        ci_wh = cm.dot(wo, wh)
+        eta_rel_wh = torch.where(ci_wh > 0, 1.0 / eta0, eta0)
+        wh_f = torch.where((ci_wh < 0)[..., None], -wh, wh)
+        ci_whf = torch.abs(ci_wh)
+        s2t_wh = torch.clamp(1.0 - ci_whf * ci_whf, min=0.0) * eta_rel_wh ** 2
+        ct_wh = cm.sqrt(torch.clamp(1.0 - s2t_wh, min=0.0))
+        wi_mf_refr = (-wo * eta_rel_wh[..., None]
+                      + (eta_rel_wh * ci_whf - ct_wh)[..., None] * wh_f)
+        choose_mf_refr = rough_glass & (uc >= 0.5)
+        choose_refr = glass & (uc >= F)
+    choose_refl = (glass & (uc < F) | mirror) if has_glass else mirror
 
-    choose_mf = two_lobe & (uc < 0.5) | metal | (rough_glass & (uc < 0.5))
-    choose_mf_refr = rough_glass & (uc >= 0.5)
-    choose_refl = glass & (uc < F) | mirror
-    choose_refr = glass & (uc >= F)
+    if glossy:
+        choose_mf = (two_lobe & (uc < 0.5) | metal
+                     | (rough_glass & (uc < 0.5)))
+        wi = torch.where(choose_mf[..., None], wi_mf, wi)
+    if has_glass:
+        wi = torch.where(choose_mf_refr[..., None], wi_mf_refr, wi)
+    # Candidate C: mirror reflection.
+    wi = torch.where(choose_refl[..., None], reflect_local(wo), wi)
+    if has_glass:
+        wi = torch.where(choose_refr[..., None], wi_refr, wi)
 
-    wi = wi_cos
-    wi = torch.where(choose_mf[..., None], wi_mf, wi)
-    wi = torch.where(choose_mf_refr[..., None], wi_mf_refr, wi)
-    wi = torch.where(choose_refl[..., None], wi_spec, wi)
-    wi = torch.where(choose_refr[..., None], wi_refr, wi)
-
-    f_eval, pdf_eval = evaluate(m, wo, wi)
+    f_eval, pdf_eval = evaluate(m, wo, wi, present)
 
     # Delta lobes: pdf=1 and f = F*R/|cos wi| so weight = f|cos|/pdf.
     aci = torch.clamp(abs_cos_theta(wi), min=1e-7)
-    f_mirror = m.kr / aci[..., None]
-    f_glass_r = (F[..., None] * m.kr) / aci[..., None]
-    f_glass_t = ((1.0 - F) * eta_rel * eta_rel)[..., None] * m.kt \
-        / aci[..., None]
-    f_glass_t = torch.where(tir[..., None], 0.0, f_glass_t)
-
     specular = choose_refl | choose_refr
     f = torch.where(specular[..., None], 0.0, f_eval)
     pdf = torch.where(specular, 1.0, pdf_eval)
-    f = torch.where(mirror[..., None], f_mirror, f)
-    f = torch.where((choose_refl & glass)[..., None], f_glass_r, f)
-    f = torch.where(choose_refr[..., None], f_glass_t, f)
-    pdf = torch.where(choose_refl & glass, torch.clamp(F, min=1e-7), pdf)
-    pdf = torch.where(choose_refr, torch.clamp(1.0 - F, min=1e-7), pdf)
+    f = torch.where(mirror[..., None], m.kr / aci[..., None], f)
+    if has_glass:
+        f_glass_r = (F[..., None] * m.kr) / aci[..., None]
+        f_glass_t = ((1.0 - F) * eta_rel * eta_rel)[..., None] * m.kt \
+            / aci[..., None]
+        f_glass_t = torch.where(tir[..., None], 0.0, f_glass_t)
+        f = torch.where((choose_refl & glass)[..., None], f_glass_r, f)
+        f = torch.where(choose_refr[..., None], f_glass_t, f)
+        pdf = torch.where(choose_refl & glass, torch.clamp(F, min=1e-7), pdf)
+        pdf = torch.where(choose_refr, torch.clamp(1.0 - F, min=1e-7), pdf)
 
     return BSDFSample(wi=wi, f=f, pdf=pdf, specular=specular,
                       transmission=choose_refr)

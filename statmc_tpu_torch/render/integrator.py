@@ -1,15 +1,19 @@
 """Wavefront statistics-tracking path integrator (port of
 statmc_tpu/render/integrator.py: IntegratorConfig, _bounce_step,
-_scrub_ls, _carry_output, trace_wavefront).
+_scrub_ls, _carry_output, trace, trace_wavefront).
 
 One ``_bounce_step`` advances every lane by one lockstep bounce: the
 closest hit, emitted light, next-event estimation with both MIS halves,
 selective MIS, BSDF continuation, approximate-contribution Russian
 roulette and the bounce-0 G-buffer capture.  ``trace_wavefront`` drives
 it with path regeneration: the JAX package's ``lax.while_loop`` becomes a
-host loop over tensor ops with the same condition.  Random draws are
-addressed by (pixel, sample, step-in-sample, slot), so per-lane results
-match the JAX package.
+host loop over tensor ops with the same condition; ``trace`` drives it
+one sample per lane over a fixed number of steps (the per-sample driver
+of the lockstep sampler).  Random draws are addressed by (pixel, sample,
+step-in-sample, slot) under every sampler mode of core/rng.py, so
+per-lane results match the JAX package.  In the exact lockstep mode the
+draws are instead read from each tile's serial PCG32 stream at a cursor
+that rides the carry (render/lockstep_exact.py).
 """
 from __future__ import annotations
 
@@ -37,10 +41,14 @@ class IntegratorConfig(NamedTuple):
     enable_acrr: bool = False
     rr_threshold: float = 1.0
     rr_start_bounce: int = 4  # reference: RR from the 5th bounce (b > 3)
+    sampler_mode: int = 0  # core/rng.py MODE_*
     cone0: float = 0.0  # ray-cone width at the origin
     cone_spread: float = 0.0  # ray-cone growth per unit distance
     direct_only: bool = False  # whitted/directlighting: specular-only paths
     null_extra: int = 0  # extra steps for null-material pass-throughs
+    # The scene's material types (MAT_*): the BSDF skips the families no
+    # lane can have (render/bsdf.py); None evaluates every family.
+    mat_types: frozenset | None = None
 
 
 class SampleOutput(NamedTuple):
@@ -86,9 +94,13 @@ def _zero_path_carry(P: int, NL: int, NB: int, device) -> dict:
 
 def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
                  avg_ls, win_bsdf, win_light, feedback_on: bool,
-                 albedo_luts):
-    """One lockstep bounce over all lanes; `step` [P] is the per-lane
-    step-in-sample draw-site index."""
+                 albedo_luts, ld_stream=None):
+    """One lockstep bounce over all lanes; `step` (an int, or [P] per
+    lane) is the step-in-sample draw-site index.  ld_stream: None
+    (random), (scramble keys, sample index) for the LD modes, (table
+    rows, sample index) for MODE_LOCKSTEP, or (the tiles' raw streams
+    [T, L], each lane's tile [P]) for MODE_LOCKSTEP_EXACT, whose cursor
+    is carry["cursor"]."""
     P = carry["o"].shape[0]
     dev = carry["o"].device
     NL = cfg.n_ls
@@ -97,10 +109,31 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     active = carry["active"]
     betas, ls = carry["betas"], carry["ls"]
     bl = carry["bounce"]
+    mode = cfg.sampler_mode
+    # The lockstep table is addressed by the per-lane bounce counter
+    # (null pass-throughs consume no draws, statpath.cpp:823-827); every
+    # other mode by the step counter.
+    dstep = bl if mode == crng.MODE_LOCKSTEP else step
+    exact = mode == crng.MODE_LOCKSTEP_EXACT
+    if exact:
+        streams, lane_tile = ld_stream
+        cur0 = carry["cursor"].long()
+
+        def take_at(pos):
+            return streams[lane_tile,
+                           torch.clamp(pos, 0, streams.shape[1] - 1)]
+
+    def draw_1d(slot):
+        return crng.draw_1d(keys, ld_stream, mode, dstep, slot)
+
+    def draw_2d(slot):
+        return crng.draw_2d(keys, ld_stream, mode, dstep, slot)
 
     # Dead lanes carry t_max = 0: they cannot hit anything.
     tmax_live = torch.where(active, cm.INF, 0.0)
-    hit = intersect_scene(scene, o, d, tmax_live, bvh)
+    # The exact replay needs pbrt's BSDF frame (ss = normalize(dpdu)) at
+    # every vertex, so cosine-sampled directions match draw for draw.
+    hit = intersect_scene(scene, o, d, tmax_live, bvh, want_tangent=exact)
     found = hit.found & active
 
     # --- emitted light at the vertex (bounce 0 or after specular) ---
@@ -121,6 +154,12 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     ns_safe = torch.where(torch.any(hit.ns != 0, -1, keepdim=True), hit.ns,
                           torch.tensor([0.0, 0.0, 1.0], device=dev))
     frame = B.ShadingFrame.from_normal(ns_safe)
+    if hit.tangent is not None:
+        t_proj = hit.tangent - cm.dot(hit.tangent, ns_safe)[..., None] \
+            * ns_safe
+        ok = torch.sum(t_proj * t_proj, -1, keepdim=True) > 1e-12
+        t_x = cm.normalize(torch.where(ok, t_proj, frame.t))
+        frame = B.ShadingFrame(t_x, cm.cross(ns_safe, t_x), ns_safe)
     wo_world = -d
     wo_l = frame.to_local(wo_world)
 
@@ -141,13 +180,19 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     delta_bsdf = B.is_specular(m)
     nee = shading & ~delta_bsdf
 
-    u_sel = crng.uniform_1d(keys, step, crng.SLOT_LIGHT_SELECT)
-    u_light = crng.uniform_2d(keys, step, crng.SLOT_LIGHT_SAMPLE)
+    if exact:
+        # pbrt: select(1) + uLight(2) + uScattering(2), consumed only when
+        # NEE runs (statpath.cpp:846,744-752).
+        u_sel = take_at(cur0)
+        u_light = torch.stack([take_at(cur0 + 1), take_at(cur0 + 2)], -1)
+    else:
+        u_sel = draw_1d(crng.SLOT_LIGHT_SELECT)
+        u_light = draw_2d(crng.SLOT_LIGHT_SAMPLE)
     light_id, sel_pmf = sample_light_id(dist, u_sel, hit.p)
 
     lsamp = LT.sample_li(scene, light_id, hit.p, hit.ng, u_light)
     wi_l = frame.to_local(lsamp.wi)
-    f_l, pdf_l_scatter = B.evaluate(m, wo_l, wi_l)
+    f_l, pdf_l_scatter = B.evaluate(m, wo_l, wi_l, cfg.mat_types)
     f_l = f_l * cm.absdot(lsamp.wi, hit.ns)[..., None]
     lvalid = (nee & (lsamp.pdf > 0) & torch.any(lsamp.li > 0, -1)
               & torch.any(f_l > 0, -1))
@@ -162,9 +207,13 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     contr_l = f_l * li_l / torch.clamp(lsamp.pdf, min=1e-30)[..., None]
 
     # BSDF half of EstimateDirect.
-    u_bs = crng.uniform_2d(keys, step, crng.SLOT_BSDF_NEE)
-    uc_bs = crng.uniform_1d(keys, step, crng.SLOT_BSDF_COMPONENT)
-    bsmp = B.sample(m, wo_l, u_bs, uc_bs)
+    if exact:
+        u_bs = torch.stack([take_at(cur0 + 3), take_at(cur0 + 4)], -1)
+        uc_bs = u_bs[:, 0]  # pbrt remaps uScattering.x in place
+    else:
+        u_bs = draw_2d(crng.SLOT_BSDF_NEE)
+        uc_bs = draw_1d(crng.SLOT_BSDF_COMPONENT)
+    bsmp = B.sample(m, wo_l, u_bs, uc_bs, cfg.mat_types)
     wi2 = frame.to_world(bsmp.wi)
     f_b = bsmp.f * cm.absdot(wi2, hit.ns)[..., None]
     bs_o = _offset_origin(hit.p, hit.ng, wi2)
@@ -245,9 +294,17 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     mis_light = carry["mis_light"] + bhot * (sm * inc_lt)[:, None]
 
     # --- BSDF sampling for path continuation ------------------------
-    u_pc = crng.uniform_2d(keys, step, crng.SLOT_BSDF)
-    uc_pc = crng.uniform_1d(keys, step, crng.SLOT_BSDF_COMPONENT_PC)
-    psmp = B.sample(m, wo_l, u_pc, uc_pc)
+    if exact:
+        # NEE consumed 5 iff it ran; the continuation's Get2D whenever the
+        # bounce shades (statpath.cpp:869, even when f or pdf is 0).
+        cur1 = cur0 + 5 * nee.long()
+        u_pc = torch.stack([take_at(cur1), take_at(cur1 + 1)], -1)
+        uc_pc = u_pc[:, 0]
+        cur2 = cur1 + 2 * shading.long()
+    else:
+        u_pc = draw_2d(crng.SLOT_BSDF)
+        uc_pc = draw_1d(crng.SLOT_BSDF_COMPONENT_PC)
+    psmp = B.sample(m, wo_l, u_pc, uc_pc, cfg.mat_types)
     wi_c = frame.to_world(psmp.wi)
     bsdf_beta = (psmp.f * cm.absdot(wi_c, hit.ns)[..., None]
                  / torch.clamp(psmp.pdf, min=1e-30)[..., None])
@@ -292,7 +349,12 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     survival = rr_beta_max * avg
     q = torch.clamp(1.0 - survival, min=0.05)
     do_rr = rr_here & active & ~pass_through & (survival < cfg.rr_threshold)
-    u_rr = crng.uniform_1d(keys, step, crng.SLOT_RR)
+    if exact:
+        # pbrt's Get1D sits inside both conditionals (statpath.cpp:941-948).
+        u_rr = take_at(cur2)
+        cur3 = cur2 + do_rr.long()
+    else:
+        u_rr = draw_1d(crng.SLOT_RR)
     killed = do_rr & (u_rr < q)
     active = active & ~killed
     betas = torch.where((do_rr & ~killed)[:, None, None],
@@ -303,7 +365,7 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
               + 2.0 * nee.to(torch.float32))
     path_len = carry["path_len"] + shading.to(torch.float32)
     bl_new = bl + torch.where(pass_through, 0, 1).to(torch.int32)
-    return dict(
+    new_carry = dict(
         o=o_new, d=d_new, ls=ls, betas=betas,
         specular=specular_new, active=active, eta_scale=eta_scale,
         mis_bsdf=mis_bsdf, mis_light=mis_light,
@@ -311,6 +373,9 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
         normal=carry_normal, albedo=carry_albedo, n_rays=n_rays,
         path_len=path_len, cum_t=cum_t, bounce=bl_new,
     )
+    if exact:
+        new_carry["cursor"] = cur3.to(torch.int32)
+    return new_carry
 
 
 def _approx_albedo(m: B.MaterialLanes, cos_o):
@@ -355,6 +420,24 @@ def _carry_output(cfg: IntegratorConfig, carry) -> SampleOutput:
     )
 
 
+def trace(scene, bvh, dist, cfg: IntegratorConfig, o0, d0, keys, avg_ls,
+          win_bsdf, win_light, feedback_on: bool, albedo_luts=None,
+          ld_stream=None) -> SampleOutput:
+    """Per-sample driver: every lane traces one sample through
+    max_depth + 1 + null_extra steps (the JAX package's lax.scan), with
+    the scalar step as the draw-site index.  Its per-sample outputs equal
+    trace_wavefront's."""
+    P = o0.shape[0]
+    carry = dict(o=o0, d=d0, **_zero_path_carry(P, cfg.n_ls,
+                                                max(cfg.nb_mis, 1),
+                                                o0.device))
+    for step in range(cfg.max_depth + 1 + cfg.null_extra):
+        carry = _bounce_step(scene, bvh, dist, cfg, carry, step, keys,
+                             avg_ls, win_bsdf, win_light, feedback_on,
+                             albedo_luts, ld_stream)
+    return _carry_output(cfg, carry)
+
+
 def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
                     pixel_ids, base_key, sample_start: int, n_samples: int,
                     avg_ls, win_bsdf, win_light, feedback_on: bool,
@@ -372,6 +455,10 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
     NL = cfg.n_ls
     NB = max(cfg.nb_mis, 1)
     n_steps = cfg.max_depth + 1 + cfg.null_extra
+    mode = cfg.sampler_mode
+    # LD modes: pixel-stable scramble words, built once per call.
+    scr = (crng.pixel_scramble(base_key, pixel_ids)
+           if mode != crng.MODE_RANDOM else None)
 
     carry = dict(o=torch.zeros((P, 3), device=dev),
                  d=torch.zeros((P, 3), device=dev),
@@ -391,7 +478,8 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
         sample_idx = sample_start + torch.clamp(s_local, min=0)
         fresh_keys = crng.pixel_keys(base_key, pixel_ids, sample_idx)
         keys = torch.where(regen[:, None], fresh_keys, keys)
-        u_cam = crng.uniform_2d(keys, 0, crng.SLOT_CAMERA)
+        ld = (scr, sample_idx) if scr is not None else None
+        u_cam = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_CAMERA)
         o_new, d_new = gen_ray_fn(u_cam)
         fresh = _zero_path_carry(P, NL, NB, dev)
         fresh["o"], fresh["d"] = o_new, d_new
@@ -405,7 +493,7 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
         # --- one lockstep physics step ----------------------------------
         carry = _bounce_step(scene, bvh, dist, cfg, carry, sis, keys,
                              avg_ls, win_bsdf, win_light, feedback_on,
-                             albedo_luts)
+                             albedo_luts, ld)
         sis = sis + 1
 
         # --- record finished samples ------------------------------------

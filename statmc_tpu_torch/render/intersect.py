@@ -3,9 +3,10 @@ statmc_tpu/render/intersect.py).
 
 Triangles go through the fused intersector (accel/fused.py, kernel B1)
 or, above FUSED_MAX_TRIS, the two-level traversal (accel/twolevel.py,
-kernels B3 and B4); spheres are tested densely with the quadric.  Hair
-tangents and texture footprints are not ported (their scenes are refused
-by driver.prepare).
+kernels B3 and B4); spheres are tested densely with the quadric.  The
+dpdu tangent is assembled only for the exact lockstep replay, whose BSDF
+frames follow pbrt's; texture footprints are not ported (their scenes
+are refused by driver.prepare).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class Hit(NamedTuple):
     mat_id: Any  # [R]
     light_id: Any  # [R] area-light id or -1
     uv_density: Any  # [R] sqrt(uv area / world area)
+    tangent: Any = None  # [R,3] dpdu, only when asked for (want_tangent)
 
     @property
     def found(self):
@@ -64,12 +66,15 @@ def ray_spheres(o, d, center, radius, t_max):
 
 
 def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
-                  lean: bool = False) -> Hit:
+                  lean: bool = False, want_tangent: bool = False) -> Hit:
     """Gather hit attributes for the closest primitives.  lean=True skips
     the shading-only attributes (the BSDF-MIS light probe reads only
-    found / light_id / ng / p)."""
+    found / light_id / ng / p); want_tangent adds the normalized dpdu
+    (triangle.cpp:309), the x axis of pbrt's BSDF frame."""
     R = o.shape[0]
     dev = o.device
+    want_tangent = want_tangent and not lean
+    tangent = None
     tri_idx = torch.where(kind == PRIM_TRI, idx, 0).long()
     sph_idx = torch.where(kind == PRIM_SPH, idx, 0).long()
     p = o + t_best[:, None] * d
@@ -110,6 +115,14 @@ def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
                                 - (uv1 - uv0)[:, 1] * (uv2 - uv0)[:, 0])
             w_area = cm.length(cm.cross(e1, e2))
             dens_t = cm.sqrt(uv_area / torch.clamp(w_area, min=1e-12))
+            if want_tangent:
+                duv1, duv2 = uv1 - uv0, uv2 - uv0
+                det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+                inv_uv = torch.where(torch.abs(det_uv) > 1e-12,
+                                     1.0 / det_uv, 0.0)[:, None]
+                tan_t = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv_uv
+                degen = torch.sum(tan_t * tan_t, -1, keepdim=True) < 1e-16
+                tan_t = cm.normalize(torch.where(degen, e1, tan_t))
     if has_sph:
         cen = scene.sph_center[sph_idx]
         dir_s = cm.normalize(p - cen)
@@ -138,8 +151,15 @@ def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
         mat = torch.where(is_t, mat_t, mat_s)
         light = torch.where(is_t, light_t, light_s)
         dens = torch.where(is_t, dens_t, dens_s)
+        if want_tangent:
+            # Sphere dpdu: the d(phi) direction.
+            tangent = torch.where(is_t[:, None], tan_t, torch.stack(
+                [-dir_s[..., 1], dir_s[..., 0],
+                 torch.zeros_like(dir_s[..., 0])], -1))
     elif has_tris:
         ng, ns, uv, mat, light, dens = ng_t, ns_t, uv_t, mat_t, light_t, dens_t
+        if want_tangent:
+            tangent = tan_t
     elif has_sph:
         ng, ns, uv, mat, light, dens = ng_s, ns_s, uv_s, mat_s, light_s, dens_s
     else:
@@ -158,6 +178,7 @@ def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
         mat_id=torch.where(miss, 0, mat),
         light_id=torch.where(miss, -1, light),
         uv_density=torch.where(miss, 0.0, dens),
+        tangent=tangent,
     )
 
 
@@ -182,7 +203,7 @@ def _intersect_tris(bvh, o, d, t_max):
 
 def intersect_scene(scene: SceneTables, o, d, t_max,
                     bvh: FusedTris | TwoLevelTris | None,
-                    lean: bool = False) -> Hit:
+                    lean: bool = False, want_tangent: bool = False) -> Hit:
     """Closest hit: dense spheres, then triangles through B1 or B3 + B4.
     bvh is None only for a scene without triangles."""
     R = o.shape[0]
@@ -197,7 +218,8 @@ def intersect_scene(scene: SceneTables, o, d, t_max,
         t_best = torch.where(better, tt, t_best)
         kind = torch.where(better, PRIM_TRI, kind)
         idx = torch.where(better, tid, idx)
-    return _assemble_hit(scene, o, d, t_best, kind, idx, lean=lean)
+    return _assemble_hit(scene, o, d, t_best, kind, idx, lean=lean,
+                         want_tangent=want_tangent)
 
 
 def occluded_scene(scene: SceneTables, o, d, t_max,

@@ -204,3 +204,19 @@ def test_plain_b1_special_rays_match_jax_ref(case):
         assert (id_ref[::2] == -1).all() and np.isnan(t_ref[::2]).all()
     else:
         assert (id_ref[::2] == -1).all() and (id_ref >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("n_tris", [1, 12, 256, 300])
+def test_plain_b1_skips_padding_rows(n_tris):
+    """intersect_plain given n_tris (the rows past it are zero padding)
+    gives the (t, id) of the walk over every row, bit for bit."""
+    rng = np.random.default_rng(n_tris)
+    (p0, e1, e2), o, d, t_max = _scene(rng, n_tris=n_tris, n_rays=600)
+    tf = TF.FusedTris.from_tris(p0, e1, e2).to_device("cpu")
+    raye, rayp = TF.ray_features(torch.as_tensor(o), torch.as_tensor(d))
+    args = (tf.edge_table, tf.plane_table, raye, rayp, torch.as_tensor(t_max))
+    t_a, id_a = TF.intersect_plain(*args)
+    t_b, id_b = TF.intersect_plain(*args, tf.n_tris)
+    assert torch.equal(id_a, id_b)
+    assert torch.equal(t_a.view(torch.int32), t_b.view(torch.int32))
+    assert int((id_a >= 0).sum()) > 0 or n_tris == 1

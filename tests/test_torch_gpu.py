@@ -1,4 +1,7 @@
-"""Kernels B1-B4 against their plain PyTorch versions on the card.
+"""Kernels B1-B4 against their plain PyTorch versions on the card (B2 also
+as the backward kernel of denoise/grad.py's FilterApply), an LD-sampler
+render on the card against the CPU, and the exact lockstep replay of
+tiny.pbrt on the card against the C++ reference's PFMs.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
 and skip without an NVIDIA GPU.  The file imports torch and the port
@@ -14,6 +17,7 @@ from statmc_tpu_torch.accel import fused as TF
 from statmc_tpu_torch.accel import twolevel as TT
 from statmc_tpu_torch.denoise import filter as TFL
 from statmc_tpu_torch.denoise import filter_cuda as FC
+from statmc_tpu_torch.denoise import grad as TG
 from statmc_tpu_torch.denoise.ttest import quantile_table
 
 
@@ -39,6 +43,9 @@ def _bits_equal(t_k, id_k, t_p, id_p):
     (300, 1500, "inf"),        # t_max = +inf: the first triangle's 1e30 wins
     (300, 1500, "nan"),        # NaN t_max on every other ray
     (300, 1500, "nonfinite"),  # infinite and NaN origins
+    (12, 1, "mixed"),          # 1-4 rays: the exact replay's calls
+    (12, 3, "mixed"),
+    (12, 4, "inf"),
 ])
 def test_b1_kernel_matches_plain(cuda, n, R, t_kind):
     """The same FMA chains over the same columns: ids equal on every ray
@@ -72,9 +79,10 @@ def test_b1_kernel_matches_plain(cuda, n, R, t_kind):
     t_k, id_k = TF.intersect_tiles(*args, ft.packed, ft.n_tris)
     assert TF.intersect_tiles.launches == before + 1
     _bits_equal(t_k, id_k, *TF.intersect_plain(*args))
+    _bits_equal(t_k, id_k, *TF.intersect_plain(*args, ft.n_tris))
     # Packed on the fly, and the padding rows walked like any other.
     _bits_equal(*TF.intersect_tiles(*args), t_k, id_k)
-    if R and t_kind not in ("nan", "nonfinite"):
+    if R >= 40 and t_kind not in ("nan", "nonfinite"):
         assert int((id_k >= 0).sum()) > R // 40  # the scene is really hit
     if t_kind == "inf":
         assert bool((id_k >= 0).all())
@@ -314,3 +322,104 @@ def test_b4_kernel_matches_plain(cuda, case):
         assert bool((id_k[2:] >= 0).any())
     else:
         assert int((id_k >= 0).sum()) > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid_zeros", [False, True])
+def test_b2_backward_kernel_matches_plain(cuda, valid_zeros):
+    """FilterApply's backward pass launches B2 with normalize=False on
+    g / max(wsum, 1e-20): held to the plain version's VJP on the same
+    inputs (rtol 1e-4 / atol 1e-6), and, with valid all ones, to the
+    autodiff twin (rtol 1e-3 / atol 1e-5, tests/test_filter_grads.py)."""
+    rng = np.random.default_rng(5)
+    H, W, C, G, r = 40, 72, 3, 6, 5
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=cuda)
+
+    fm = t(rng.random((H, W, C)))
+    mc, d2 = t(rng.random((H, W, C))), t(0.5 + rng.random((H, W, C)))
+    gb, g = t(rng.random((H, W, G))), t(rng.standard_normal((H, W, C)))
+    valid = np.ones((H, W), np.float32)
+    if valid_zeros:
+        valid[:, -4:] = 0.0
+    valid = t(valid)
+    gf, ds = (-0.5 / 0.3 ** 2,) * G, -0.5 / 4.0
+    x = fm.clone().requires_grad_(True)
+    before = FC.run_filter.launches
+    out = TG.filter_apply(x, mc, d2, gb, valid, r, ds, gf)
+    out.backward(g)
+    assert FC.run_filter.launches == before + 2  # forward + backward
+    _, wsum = FC.run_filter_plain(mc, d2, fm, gb, valid, r, ds, gf)
+    grad_p, _ = FC.run_filter_plain(
+        mc, d2, (g / torch.clamp(wsum, min=1e-20)[..., None]).contiguous(),
+        gb, valid, r, ds, gf, normalize=False)
+    torch.testing.assert_close(x.grad, grad_p, rtol=1e-4, atol=1e-6)
+    if not valid_zeros:
+        y = fm.clone().requires_grad_(True)
+        TG.filter_apply_diff(y, mc, d2, gb, valid, r, ds, gf).backward(g)
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-3, atol=1e-5)
+
+
+def _small_staircase(tmp_path, sampler):
+    from statmc_tpu_torch.testscenes import scene_text
+
+    text = scene_text(width=16, height=12, spp=2, iterations=2, maxdepth=3,
+                      denoise=True, filterradius=2)
+    path = tmp_path / "s.pbrt"
+    path.write_text(text.replace('Sampler "random"', f'Sampler "{sampler}"'))
+    return str(path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["halton", "sobol"])
+def test_ld_render_card_matches_cpu(cuda, sampler, tmp_path):
+    """An LD-sampler render on the card against the CPU: equal sample
+    counts and ray totals, every buffer within rtol 1e-4 on 98% of its
+    pixels (chip_smoke.py's rule for a small render)."""
+    from statmc_tpu_torch.driver import load
+
+    path = _small_staircase(tmp_path, sampler)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = load(path, device=dev)
+        r.progress = False
+        runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
+    assert runs["cuda"][0] == runs["cpu"][0]
+    gpu, cpu = runs["cuda"][1], runs["cpu"][1]
+    assert gpu.keys() == cpu.keys()
+    for k in cpu:
+        if k.endswith("-n"):
+            np.testing.assert_array_equal(gpu[k], cpu[k])
+            continue
+        close = np.isclose(gpu[k], cpu[k], rtol=1e-4, atol=1e-6)
+        assert (close.all(-1) if close.ndim == 3 else close).mean() >= 0.98
+
+
+@pytest.mark.gpu
+def test_exact_replay_of_tiny_on_the_card(cuda):
+    """tiny.pbrt's exact lockstep replay on the card against the C++
+    reference's PFMs, at tests/test_refparity.py's tolerances."""
+    import os
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.io.pfm import read_pfm
+    from statmc_tpu_torch.render.lockstep_exact import moments_from_samples
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures", "refparity")
+
+    def ref(name):
+        return read_pfm(os.path.join(fix, f"tiny-4-{name}.pfm"))
+
+    before = TF.intersect_tiles.launches
+    rep = load(os.path.join(fix, "tiny.pbrt"), device=cuda
+               ).render_lockstep_exact(spp=4)
+    assert TF.intersect_tiles.launches > before
+    np.testing.assert_allclose(rep.film.reshape(16, 16, 3), ref("film"),
+                               atol=2e-6, rtol=0)
+    n, mean, m2, m3 = moments_from_samples(rep.radiance)
+    np.testing.assert_array_equal(n.reshape(16, 16), ref("t0-b0-n"))
+    for name, x in (("mean", mean), ("m2", m2), ("m3", m3)):
+        np.testing.assert_allclose(x.reshape(16, 16, 3), ref(f"t0-b0-{name}"),
+                                   atol=2e-5, rtol=0)

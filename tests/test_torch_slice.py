@@ -96,7 +96,7 @@ def test_package_imports_without_jax():
 
 
 @pytest.mark.parametrize("edit,item", [
-    (("Sampler \"random\"", "Sampler \"halton\""), "LD samplers"),
+    (("Camera \"perspective\"", "Camera \"realistic\""), "Rest of slice 4"),
     (("Material \"glass\" \"float index\" [1.5]",
       "Material \"hair\""), "Rest of slice 4"),
     (("Integrator \"statpath\"", "Integrator \"bdpt\""), "Rest of slice 4"),
@@ -258,6 +258,38 @@ def test_bsdf_sample_and_evaluate_match(tiny):
         a, b = getattr(ts_, f).numpy(), np.asarray(getattr(js_, f))
         close = np.isclose(a, b, rtol=1e-4, atol=1e-5)
         assert close.reshape(R, -1).all(-1).mean() >= 0.999, f
+
+
+@pytest.mark.parametrize("present", [(1,), (5,), (1, 5), (2, 3), (4,),
+                                     (1, 4, 6), (9, 8)])
+def test_bsdf_skips_absent_families_bitwise(present):
+    """evaluate / sample given the material types that can occur skip
+    the other families and leave every lane's value as it was, bit for
+    bit."""
+    rng = np.random.default_rng(len(present))
+    R = 2000
+    mt = np.asarray(present, np.int32)[rng.integers(0, len(present), R)]
+    rough = np.where(rng.random(R) < 0.5, 0.0, 0.2)
+    lanes = dict(mat_type=mt, kd=rng.random((R, 3)), ks=rng.random((R, 3)),
+                 kr=rng.random((R, 3)), kt=rng.random((R, 3)),
+                 eta=np.full((R, 3), 1.5), k=rng.random((R, 3)) * 3,
+                 rough_u=np.where(mt == 4, rough, 0.1),
+                 rough_v=np.where(mt == 4, rough, 0.15),
+                 sigma=np.where(mt == 1, 20.0 * (rng.random(R) < 0.5), 0.3))
+    tm = TB.MaterialLanes(**{k: torch.as_tensor(np.asarray(
+        v, np.int32 if k == "mat_type" else np.float32))
+        for k, v in lanes.items()})
+    wo, wi = (torch.nn.functional.normalize(torch.as_tensor(
+        rng.standard_normal((R, 3)).astype(np.float32)), dim=-1)
+        for _ in range(2))
+    u2 = torch.as_tensor(rng.random((R, 2)).astype(np.float32))
+    uc = torch.as_tensor(rng.random(R).astype(np.float32))
+    for a, b in zip(TB.evaluate(tm, wo, wi),
+                    TB.evaluate(tm, wo, wi, frozenset(present))):
+        assert torch.equal(a, b)
+    for a, b in zip(TB.sample(tm, wo, u2, uc),
+                    TB.sample(tm, wo, u2, uc, frozenset(present))):
+        assert torch.equal(a, b)
 
 
 def test_albedo_curves_match(tiny):
