@@ -55,6 +55,16 @@ and the final line is not printed:
    ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
    proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
    set to 0 just before it and read just after;
+8a. the textured terrain: the same terrain with textures of every kind
+   (a 2048x2048 imagemap floor at uscale = vscale = 8, checkerboard boxes,
+   fbm, wrinkled, windy, marble, dots, uv, bilerp, mix and scale on the
+   spheres), an environment-mapped infinite light (a 2048x1024 EXR) and a
+   projection light (a 512x512 image), every image made from SEED and
+   written by the port's own writers, denoised: every kernel's launch
+   count set to 0 just before its iteration and read just after (B2, B3
+   and B4 must launch); film finite with mean > 0; the albedo G-buffer's
+   detail above the untextured terrain's; rays/s beside the untextured
+   terrain's;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
    iteration's denoise pass profiled once more on its own; then one more
@@ -62,7 +72,10 @@ and the final line is not printed:
    kernel (B3's and B4's per iteration) and by stage of the two-level
    intersect call (partition, slab rays, B3, worklists, features, B4,
    unsort), and the device's busy share of the unprofiled iteration;
-   the rays of that iteration's B3 calls are kept;
+   the rays of that iteration's B3 calls are kept; then the textured
+   terrain's iteration under torch.profiler: kernels, device time and
+   busy share beside the untextured terrain's, and the device ms inside
+   the ``textures.sample_texture`` and ``lights.env_map`` ranges;
 10. kernel B3 on those rays: votes against the two-stage plain cull on
     every call, its time over all calls, and the reject tests, per-ray
     tests and surviving boxes per block that its design spends there;
@@ -76,6 +89,10 @@ and the final line is not printed:
     compared on 64 blocks of each (timed on all and on those 64);
 12. a small terrain proxy (32x24, 19,554 triangles, still two-level) on
     the card and on the CPU: the buffers must agree;
+12b. the textured staircase (32x24, every texture kind, an environment
+    map, a goniometric light) on the card and on the CPU: equal ray
+    totals, every buffer within rtol 1e-4 on >= 99% of its pixels, B1
+    and B2 launched on the card;
 12a. the command line: ``python -m statmc_tpu_torch`` in a subprocess on
     the 1280x720 staircase with configs/render-for-ours.pbrt's block (cut
     to maxdepth 8 and 4 spp), 2 iterations, every buffer written; then
@@ -137,6 +154,13 @@ SUBSET = 64  # blocks of 512 rays on which B4 meets its plain version
 # worst on an NVIDIA H100 80GB HBM3 at 700 W, with equal ray totals).
 SMALL_W, SMALL_H, SMALL_SHARE = 32, 24, 0.98
 TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
+# The profiler ranges whose device time _trace_sums attributes: the
+# two-level intersect's stages, the texture lookups, the env-map branches.
+RANGES = ("twolevel.", "textures.", "lights.")
+SEED = 0  # the textured phases' images are made from it
+# The textured small phase's share of pixels within rtol 1e-4 (card
+# against CPU), with ray totals equal.
+TEXTURED_SHARE = 0.99
 
 
 def _card() -> str:
@@ -574,11 +598,15 @@ def phase_staircase_profile(card, r, render_s):
     return {"B1": groups["B1"][0], "B2": den["B2"][0]}
 
 
-def phase_small_reference(card, name, text):
+def phase_small_reference(card, name, text, share=SMALL_SHARE,
+                          max_drift=1e-3, kernels=()):
     """A small scene rendered on the card and on the CPU (the kernels'
     plain versions): equal sample counts, and buffers that agree up to
     the paths that an ulp sends elsewhere (tests/test_torch_slice.py
-    explains why such paths exist between any two implementations)."""
+    explains why such paths exist between any two implementations).
+    text: the scene, or a function of the scene's directory that writes
+    its assets there and returns it.  kernels: the kernels (of B1-B4)
+    that the card's render must launch, counted around it."""
     import numpy as np
 
     from statmc_tpu_torch.driver import load
@@ -586,12 +614,16 @@ def phase_small_reference(card, name, text):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, f"{name}-small.pbrt")
         with open(path, "w") as f:
-            f.write(text)
+            f.write(text(tmp) if callable(text) else text)
         bufs, rays = {}, {}
         for dev in ("cuda", "cpu"):
             r = load(path, device=dev)
             r.progress = False
+            if dev == "cuda":
+                _zero_counts()
             rays[dev] = r.render(verbose=False)[-1]["rays_total"]
+            if dev == "cuda":
+                launches = _read_counts()
             bufs[dev] = r.buffers()
     gpu, cpu = bufs["cuda"], bufs["cpu"]
     if gpu.keys() != cpu.keys():
@@ -607,22 +639,25 @@ def phase_small_reference(card, name, text):
         if not np.isfinite(b).all():
             raise AssertionError(f"{k}: not finite on the card")
         close = np.isclose(b, a, rtol=1e-4, atol=1e-6)
-        share = float((close.all(-1) if close.ndim == 3 else close).mean())
-        shares[k] = share
+        shares[k] = float((close.all(-1) if close.ndim == 3
+                           else close).mean())
         scale = float(np.abs(a).mean()) + 1e-12
-        if share < SMALL_SHARE or abs(b.mean() - a.mean()) > 1e-3 * scale:
-            raise AssertionError(f"{k}: {share:.4f} of pixels within rtol "
-                                 f"1e-4, means {a.mean()} (cpu) vs "
+        if (shares[k] < share
+                or abs(b.mean() - a.mean()) > 1e-3 * scale):
+            raise AssertionError(f"{k}: {shares[k]:.4f} of pixels within "
+                                 f"rtol 1e-4, means {a.mean()} (cpu) vs "
                                  f"{b.mean()} (card)")
     drift = abs(rays["cuda"] - rays["cpu"]) / rays["cpu"]
-    if drift > 1e-3:
+    if drift > max_drift:
         raise AssertionError(f"rays_total {rays['cuda']} (card) vs "
                              f"{rays['cpu']} (cpu)")
+    if any(launches[k] <= 0 for k in kernels):
+        raise AssertionError(f"small {name}: launches {launches}")
     worst = min(shares, key=shares.get)
     print(f"small {name}: {SMALL_W}x{SMALL_H} card vs cpu, {len(cpu)} "
           f"buffers, worst {worst} {shares[worst]:.4f} of pixels within "
-          f"rtol 1e-4, rays_total {rays['cuda']:.0f} vs {rays['cpu']:.0f} "
-          f"[{card}]", flush=True)
+          f"rtol 1e-4, rays_total {rays['cuda']:.0f} vs {rays['cpu']:.0f}, "
+          f"card launches {launches} [{card}]", flush=True)
 
 
 def scene_small():
@@ -638,6 +673,159 @@ def terrain_small():
 
     return terrain_scene_text(width=SMALL_W, height=SMALL_H, spp=2,
                               iterations=2, maxdepth=4, n=96, denoise=True)
+
+
+def textured_small(tmp):
+    """The textured staircase at 32x24: every texture kind, an
+    environment map and a goniometric light, its images written into
+    tmp (fused path, B1 and B2)."""
+    from statmc_tpu_torch.testscenes import textured_scene_text
+
+    return textured_scene_text(tmp, width=SMALL_W, height=SMALL_H, spp=2,
+                               iterations=2, maxdepth=4, seed=SEED)
+
+
+def _counters():
+    """{kernel: the wrapper whose `launches` counts its launches}."""
+    from statmc_tpu_torch.accel import fused as F
+    from statmc_tpu_torch.accel import twolevel as TT
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+
+    return {"B1": F.intersect_tiles, "B2": FC.run_filter, "B3": TT.cull,
+            "B4": TT.walk}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _albedo_detail(bufs):
+    """How much the albedo G-buffer (t2) varies inside surfaces: the mean
+    |difference| between neighbouring pixels that both hit something (a
+    non-zero first-hit normal, t1), and the share of such pixels.  Both
+    renders have the same geometry, so the textures' edges and noise add
+    to it and the objects' outlines do not."""
+    import numpy as np
+
+    a, hit = bufs["t2-b0-mean"], np.abs(bufs["t1-b0-mean"]).sum(-1) > 0
+    dx = np.abs(a[:, 1:] - a[:, :-1]).sum(-1)[hit[:, 1:] & hit[:, :-1]]
+    dy = np.abs(a[1:] - a[:-1]).sum(-1)[hit[1:] & hit[:-1]]
+    return float(np.concatenate([dx, dy]).mean()), float(hit.mean())
+
+
+def phase_textured_terrain(card, plain, plain_s):
+    """The terrain with textures of every kind, an environment map and a
+    projection light (testscenes.textured_terrain_text: a 2048x2048
+    imagemap floor at uscale = vscale = 8, a 2048x1024 EXR sky, a 512x512
+    light image, all made from SEED and written by the port's own
+    writers), 1280x720, 4 spp, maxdepth 8, denoised:
+    ``load(scene).render(iterations=1)`` with every kernel's launch count
+    set to 0 just before it and read just after.  plain: the untextured
+    terrain's renderer, plain_s its iteration's render_s.  Returns (the
+    renderer, launches, render_s)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import textured_terrain_text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        text = textured_terrain_text(
+            tmp, width=WIDTH, height=HEIGHT, spp=TERRAIN_SPP, iterations=1,
+            maxdepth=TERRAIN_MAXDEPTH, denoise=True, seed=SEED)
+        path = os.path.join(tmp, "textured-terrain.pbrt")
+        with open(path, "w") as f:
+            f.write(text)
+        assets_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    if not isinstance(r.s.bvh, TT.TwoLevelTris):
+        raise AssertionError(f"textured terrain: {type(r.s.bvh).__name__}")
+    sc = r.s.scene
+    if not (sc.has_textures and sc.env_light_id >= 0 and sc.has_image_lights):
+        raise AssertionError("textured terrain: textures, environment map "
+                             "or image light missing")
+    r.progress = False
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    log = r.render(iterations=1, verbose=False)[-1]
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    bufs = r.buffers()
+    for name in ("film", "film-f"):
+        img = bufs[name]
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"textured terrain {name}: not finite with "
+                                 "mean > 0")
+    if min(launches[k] for k in ("B2", "B3", "B4")) <= 0:
+        raise AssertionError(f"textured terrain launch counts {launches}")
+    det_t, hit_t = _albedo_detail(bufs)
+    det_p, hit_p = _albedo_detail(plain.buffers())
+    if not det_t > det_p:
+        raise AssertionError(f"textured terrain: albedo detail {det_t} not "
+                             f"above the untextured terrain's {det_p}")
+    tex = sc.textures
+    atlas_mb = tex.atlas.numel() * 4 / 1e6
+    env_mb = sc.env_map.numel() * 4 / 1e6
+    cdf_mb = (sc.env_cond_cdf.numel() + sc.env_pdf_uv.numel()) * 4 / 1e6
+    rays = log["rays_total"]
+    print(f"textured terrain: {r.s.bvh.n_tris} tris, kinds "
+          f"{list(tex.kinds_static)}, atlas {atlas_mb:.1f} MB, env map "
+          f"{env_mb:.1f} MB, CDF + pdf {cdf_mb:.1f} MB; assets written in "
+          f"{assets_s:.1f} s, setup {setup_s:.1f} s; {WIDTH}x{HEIGHT} spp "
+          f"{TERRAIN_SPP} maxdepth {TERRAIN_MAXDEPTH}: {rays:.0f} rays in "
+          f"{log['render_s']:.3f} s = {rays / log['render_s']:.1f} rays/s "
+          f"(untextured terrain in this run: {plain_s:.3f} s), denoise "
+          f"{log['denoise_s'] * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} "
+          f"GiB; film mean {bufs['film'].mean():.5f}; albedo detail "
+          f"{det_t:.5f} over {hit_t:.3f} of pixels against {det_p:.5f} over "
+          f"{hit_p:.3f} untextured; launches {launches} [{card}]",
+          flush=True)
+    return r, launches, log["render_s"]
+
+
+def phase_textured_profile(card, r, render_s, plain):
+    """The textured terrain's iteration once more under torch.profiler:
+    kernels and device time against the untextured terrain's (plain:
+    {kernels, device_ms, busy} from its profile), the device's busy share
+    of the unprofiled iteration (render_s), and the device ms inside the
+    ``textures.sample_texture`` and ``lights.env_map`` ranges.  Returns
+    {kernel: device ms in the iteration}."""
+    log, groups, launches, stages, read_s = _profile(
+        lambda: r.run_iteration(1))
+    total = sum(ms for ms, _ in groups.values())
+    kernels = sum(n for _, n in groups.values())
+    tex = stages.get("textures.sample_texture", [0, 0.0, 0.0])
+    env = stages.get("lights.env_map", [0, 0.0, 0.0])
+    print(f"textured profile: iteration 1 again, {log['render_s']:.3f} s "
+          f"profiled, trace read in {read_s:.1f} s; device time "
+          f"{total:.1f} ms in {kernels} kernels ({launches} launched "
+          f"through the runtime), busy {total / 1e3 / render_s:.3f} of the "
+          f"unprofiled {render_s:.3f} s (untextured terrain: "
+          f"{plain['device_ms']:.1f} ms in {plain['kernels']} kernels, busy "
+          f"{plain['busy']:.3f}); sample_texture {tex[0]} calls, "
+          f"{tex[2]:.1f} ms device ({tex[2] / max(total, 1e-9):.3f}) / "
+          f"{tex[1]:.1f} ms host; env map {env[0]} calls, {env[2]:.1f} ms "
+          f"device ({env[2] / max(total, 1e-9):.3f}) / {env[1]:.1f} ms "
+          "host; "
+          + ", ".join(f"{g} {ms:.1f} ms ({n})"
+                      for g, (ms, n) in groups.items() if n)
+          + f" [{card}]", flush=True)
+    if tex[0] <= 0 or env[0] <= 0 or tex[2] <= 0 or env[2] <= 0:
+        raise AssertionError("textured profile: no sample_texture or env-map"
+                             " range with device time in the trace")
+    return {k: groups[k][0] for k in ("B2", "B3", "B4")}
 
 
 def _terrain_renderer():
@@ -732,7 +920,7 @@ def _trace_sums(prof):
             launches += 1
         elif e.linked_correlation_id() == 0:  # a CPU op or a range
             ops.append((e.start_ns(), e.correlation_id()))
-            if name.startswith("twolevel."):
+            if name.startswith(RANGES):
                 ranges.append((e.start_ns(), e.end_ns(), name))
     ranges.sort()
     starts = [a for a, _, _ in ranges]
@@ -756,7 +944,8 @@ def phase_terrain_profile(card, r, render_s):
     iteration's calls), and the device's busy share of the unprofiled
     iteration (render_s).  Returns ({kernel: device ms per iteration},
     the rays of each of the iteration's B3 calls, recorded by wrapping
-    accel/twolevel.py's slab_rays, which makes them)."""
+    accel/twolevel.py's slab_rays, which makes them, and the iteration's
+    {kernels, device_ms, busy})."""
     from statmc_tpu_torch.accel import twolevel as TT
 
     cull_rays, real = [], TT.slab_rays
@@ -799,7 +988,9 @@ def phase_terrain_profile(card, r, render_s):
     if not stages or groups["B3"][1] <= 0 or groups["B4"][1] <= 0:
         raise AssertionError("terrain profile: no two-level stages or "
                              "kernels in the trace")
-    return {k: groups[k][0] for k in ("B3", "B4")}, cull_rays
+    whole = {"kernels": sum(n for _, n in groups.values()),
+             "device_ms": total, "busy": total / 1e3 / render_s}
+    return {k: groups[k][0] for k in ("B3", "B4")}, cull_rays, whole
 
 
 def phase_b3_main_rays(card, bounds, calls, other):
@@ -1523,12 +1714,17 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     r, tl_launches, render_s = phase("terrain main path",
                                      phase_terrain_main_path, card)
     launches.update(tl_launches)
+    rt, tx_launches, tx_s = phase("textured terrain", phase_textured_terrain,
+                                  card, r, render_s)
     path_ms = phase("staircase profile", phase_staircase_profile, card, rs,
                     stair_s)
     del rs
-    terrain_ms, cull_calls = phase("terrain profile", phase_terrain_profile,
-                                   card, r, render_s)
+    terrain_ms, cull_calls, terrain_whole = phase(
+        "terrain profile", phase_terrain_profile, card, r, render_s)
     path_ms.update(terrain_ms)
+    tx_ms = phase("textured profile", phase_textured_profile, card, rt, tx_s,
+                  terrain_whole)
+    del rt
     phase("B3 main-path rays", phase_b3_main_rays, card, r.s.bvh.bounds,
           cull_calls, other)
     del cull_calls
@@ -1536,6 +1732,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     del r
     phase("small terrain", phase_small_reference, card, "terrain",
           terrain_small())
+    phase("textured small", phase_small_reference, card, "textured staircase",
+          textured_small, TEXTURED_SHARE, 0.0, ("B1", "B2"))
     cli = phase("CLI", phase_cli, card)
     cam = b34["camera"]
     kernels = [
@@ -1543,6 +1741,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "source": "statmc_tpu_torch/csrc/fused_intersect.cu",
          "replaces": "statmc_tpu/accel/fused.py:237",
          "launches": launches["B1"], "main_path_ms": path_ms["B1"],
+         "textured_launches": tx_launches["B1"],
+         "textured_main_path_ms": tx_ms.get("B1"),
          "max_abs_err": max(v["err"] for v in b1.values()),
          "ms": b1["staircase"]["ms"],
          "plain_ms": b1["staircase"]["plain_ms"],
@@ -1552,6 +1752,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "source": "statmc_tpu_torch/csrc/stat_filter.cu",
          "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
          "launches": launches["B2"], "main_path_ms": path_ms["B2"],
+         "textured_launches": tx_launches["B2"],
+         "textured_main_path_ms": tx_ms.get("B2"),
          "max_abs_err": max(v["err"] for v in (*b2.values(), *b2r.values())),
          "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"],
          "bound_ms": b2[True]["bound_ms"], "bound_by": b2[True]["bound_by"],
@@ -1575,6 +1777,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "source": "statmc_tpu_torch/csrc/twolevel_cull.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:249",
          "launches": launches["B3"], "main_path_ms": path_ms["B3"],
+         "textured_launches": tx_launches["B3"],
+         "textured_main_path_ms": tx_ms.get("B3"),
          "max_abs_err": max(v["cull_err"] for v in b34.values()),
          "ms": cam["cull_ms"], "plain_ms": cam["cull_plain_ms"],
          "bound_ms": cam["b3"][0], "bound_by": cam["b3"][1],
@@ -1584,6 +1788,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "source": "statmc_tpu_torch/csrc/twolevel_walk.cu",
          "replaces": "statmc_tpu/accel/twolevel.py:406",
          "launches": launches["B4"], "main_path_ms": path_ms["B4"],
+         "textured_launches": tx_launches["B4"],
+         "textured_main_path_ms": tx_ms.get("B4"),
          "max_abs_err": max(v["walk_err"] for v in b34.values()),
          "ms": cam["walk_ms"], "plain_ms": cam["walk_plain_ms"],
          "bound_ms": cam["b4"][0], "bound_by": cam["b4"][1],
@@ -1594,7 +1800,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,
-        "replay_b1_checked": replay_b1}}))
+        "replay_b1_checked": replay_b1,
+        "textured_terrain_render_s": tx_s, "terrain_render_s": render_s}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,17 @@ from .scene.textures import TextureTable
 
 
 def scene_tables(scene, device="cpu") -> SceneTables:
-    """A JAX-package SceneTables -> the port's SceneTables on `device`."""
+    """A JAX-package SceneTables -> the port's SceneTables on `device`
+    (its texture table, environment-map tables and image-light rows
+    included; the JAX package's SceneFlags become the port's two
+    flags)."""
+    flags = {"has_textures": bool(scene.flags.has_textures),
+             "has_image_lights": bool(scene.flags.has_image_lights)}
     tex = TextureTable(*[x if isinstance(x, (bool, tuple, type(None)))
                          else np.asarray(x) for x in scene.textures])
     fields = {f: np.asarray(getattr(scene, f)) for f in SceneTables._fields
-              if f != "textures"}
-    return SceneTables(textures=tex, **fields).to_device(device)
+              if f not in ("textures", *flags)}
+    return SceneTables(textures=tex, **fields, **flags).to_device(device)
 
 
 def fused_tris(ft, device="cpu") -> FusedTris:

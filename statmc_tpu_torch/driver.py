@@ -47,8 +47,7 @@ from .stats import moments
 # size changes memory use and launch counts, never results.
 PIXEL_BLOCK = 1 << 20
 
-# Port queue items in ROADMAP.md that the NotImplementedError gates name.
-_ITEM_TEX = "Textures"
+# The port queue item in ROADMAP.md that the NotImplementedError gates name.
 _ITEM_REST = "Rest of slice 4"
 
 
@@ -93,11 +92,6 @@ def _check_supported(desc: SceneDescription) -> None:
         if md is not None and md.mat_type in ("hair", "fourier",
                                               "kdsubsurface", "subsurface"):
             raise _unported(f'Material "{md.mat_type}"', _ITEM_REST)
-    for ld in desc.lights:
-        if ld.light_type in ("goniometric", "projection"):
-            raise _unported(f'LightSource "{ld.light_type}"', _ITEM_REST)
-        if ld.light_type == "infinite" and ld.params.find_one("mapname"):
-            raise _unported("environment-map infinite lights", _ITEM_TEX)
 
 
 def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
@@ -151,8 +145,6 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
     _check_supported(desc)
     scene_np = _morton_order_scene(build_scene(desc, strict=strict_assets))
     n_tris = scene_np.tri_p0.shape[0]
-    if np.any(scene_np.mat_kd_tex >= 0):
-        raise _unported("textured materials", _ITEM_TEX)
     width = int(desc.film_params.find_one("xresolution", 640))
     height = int(desc.film_params.find_one("yresolution", 480))
     filename = str(desc.film_params.find_one("filename", "out.pfm"))

@@ -3,7 +3,8 @@ statmc_tpu/render/bsdf.py).
 
 Every function maps over [R] lanes in the local shading frame (z =
 shading normal); the material families are evaluated branchlessly and
-selected per lane by type id.  Ported families: matte, plastic, metal,
+selected per lane by type id; a textured Kd is looked up per lane
+(scene/textures.py).  Ported families: matte, plastic, metal,
 substrate, uber, translucent, mirror, glass (smooth and rough) and
 disney.  Hair, Fourier and subsurface materials are refused by
 driver.prepare.
@@ -17,6 +18,7 @@ import torch
 
 from ..core import math as cm
 from ..scene import build as sb
+from ..scene.textures import sample_texture
 
 INV_PI = 1.0 / math.pi
 
@@ -54,12 +56,20 @@ class MaterialLanes(NamedTuple):
     sigma: Any
 
 
-def gather_materials(scene: sb.SceneTables, mat_id) -> MaterialLanes:
-    """Per-lane material rows (no texture lookups: the slice refuses
-    textured scenes)."""
+def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
+                     uv_fp=None, uv_axes=None) -> MaterialLanes:
+    """Per-lane material rows.  With uv given and a textured scene, Kd is
+    multiplied by its texture's value at (uv, p), filtered by the
+    footprint uv_fp (trilinear) or uv_axes (EWA); untextured lanes sample
+    1 and keep their Kd bit for bit, and an untextured scene runs no
+    lookup at all."""
     m = mat_id.long()
+    kd = scene.mat_kd[m]
+    if uv is not None and scene.has_textures:
+        kd = kd * sample_texture(scene.textures, scene.mat_kd_tex[m], uv, p,
+                                 uv_fp, uv_axes=uv_axes)
     return MaterialLanes(
-        mat_type=scene.mat_type[m], kd=scene.mat_kd[m], ks=scene.mat_ks[m],
+        mat_type=scene.mat_type[m], kd=kd, ks=scene.mat_ks[m],
         kr=scene.mat_kr[m], kt=scene.mat_kt[m], eta=scene.mat_eta[m],
         k=scene.mat_k[m], rough_u=scene.mat_rough_u[m],
         rough_v=scene.mat_rough_v[m], sigma=scene.mat_sigma[m])

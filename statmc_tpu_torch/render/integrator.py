@@ -147,7 +147,17 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
 
     shading = found & (bl < cfg.max_depth)
     cum_t = carry["cum_t"] + torch.where(found, hit.t, 0.0)
-    m = B.gather_materials(scene, hit.mat_id)
+    if scene.has_textures:
+        # Ray-cone footprint of the hit (the stand-in for ray
+        # differentials): its width in uv units drives the MIP level.
+        cone_w = cfg.cone0 + cfg.cone_spread * cum_t
+        m = B.gather_materials(
+            scene, hit.mat_id, hit.uv, hit.p,
+            uv_fp=cone_w * hit.uv_density,
+            uv_axes=(hit.uv_axes * cone_w[..., None, None]
+                     if hit.uv_axes is not None else None))
+    else:
+        m = B.gather_materials(scene, hit.mat_id)
     null_mat = m.mat_type == sb.MAT_NONE
     shading = shading & ~null_mat
 

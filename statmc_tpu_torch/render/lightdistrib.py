@@ -44,7 +44,13 @@ def _light_power(scene_np: sb.SceneTables) -> np.ndarray:
     for k in (sb.LIGHT_AREA_TRI, sb.LIGHT_AREA_SPH):
         power[kind == k] = lum[kind == k] * area[kind == k] * np.pi
     power[kind == sb.LIGHT_POINT] = 4.0 * np.pi * lum[kind == sb.LIGHT_POINT]
+    # Image-modulated point lights: 4pi I is the upper bound pbrt also
+    # uses before image averaging (goniometric.cpp:Power ~ average).
+    power[kind == sb.LIGHT_GONIO] = 4.0 * np.pi * lum[kind == sb.LIGHT_GONIO]
+    power[kind == sb.LIGHT_PROJ] = 2.0 * np.pi * lum[kind == sb.LIGHT_PROJ]
     power[kind == sb.LIGHT_SPOT] = 2.0 * np.pi * lum[kind == sb.LIGHT_SPOT]
+    # An environment-mapped infinite light's L is 1 (scene/build.py folds
+    # L * scale into the map), so its row is pi r^2 like a constant one's.
     for k in (sb.LIGHT_DISTANT, sb.LIGHT_INFINITE):
         power[kind == k] = np.pi * wr * wr * lum[kind == k]
     return power

@@ -2,9 +2,17 @@
 
 Every emissive triangle is its own light, spheres use cone sampling from
 outside points, and all light kinds are evaluated branchlessly and
-selected per lane with ``torch.where``.  Image-modulated lights and
-environment maps are not ported (driver.prepare refuses them), so the
-infinite light here is the constant one.
+selected per lane with ``torch.where``.  The goniometric/projection block
+runs only for scenes with such lights and the environment-map branches
+only for a scene with a map (host decisions, as in the JAX package);
+those run in ``lights.env_map`` profiler ranges.
+
+The environment map's conditional search does not gather a CDF row per
+lane (2^20 lanes x a 2048-wide row would be 8.6 GB): every row's CDF
+values, as int32 bit patterns (monotone for non-negative floats), are
+offset by row * 2^31 into one sorted int64 table, so one searchsorted of
+``bits(u) + vrow * 2^31`` finds the column with the comparisons the JAX
+package's per-row search makes.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 
 from ..core import math as cm
 from ..scene import build as sb
+from ..scene.textures import KIND_IMAGE, sample_texture
 
 
 def _light_rows(scene: sb.SceneTables, light_id):
@@ -23,6 +32,37 @@ def _light_rows(scene: sb.SceneTables, light_id):
             scene.light_prim[lid], scene.light_pos[lid],
             scene.light_aux[lid], scene.light_params[lid],
             scene.light_area[lid])
+
+
+def _env_sample(scene: sb.SceneTables, u2):
+    """Importance-sample the environment map's Distribution2D: (row,
+    column) per lane, equal to the JAX package's searchsorted (side
+    "right") over the marginal CDF, then over the row's conditional CDF,
+    each clamped to the last index."""
+    He, We = scene.env_cond_cdf.shape
+    marg = scene.env_marginal_cdf
+    vrow = torch.clamp(torch.searchsorted(marg, u2[..., 1].contiguous(),
+                                          right=True), max=He - 1)
+    rows = torch.arange(He, dtype=torch.int64, device=u2.device) << 31
+    keys = (scene.env_cond_cdf.view(torch.int32).long()
+            + rows[:, None]).reshape(-1)
+    u = torch.clamp(u2[..., 0], min=0.0) + 0.0  # -0.0 -> +0.0
+    q = u.contiguous().view(torch.int32).long() + (vrow << 31)
+    ucol = torch.searchsorted(keys, q, right=True) - vrow * We
+    return vrow, torch.clamp(ucol, max=We - 1)
+
+
+def _env_texel(scene: sb.SceneTables, w):
+    """Equirect (row, column) of light-space direction w, and its theta
+    (infinite.cpp:Le / Pdf_Li)."""
+    theta = torch.arccos(torch.clamp(w[..., 2], -1.0, 1.0))
+    phi = torch.atan2(w[..., 1], w[..., 0])
+    uu = torch.remainder(phi / (2 * math.pi), 1.0)
+    vv = torch.clamp(theta / math.pi, 0.0, 1.0 - 1e-6)
+    He, We = scene.env_map.shape[:2]
+    vrow = torch.clamp((vv * He).to(torch.int64), 0, He - 1)
+    ucol = torch.clamp((uu * We).to(torch.int64), 0, We - 1)
+    return vrow, ucol, theta
 
 
 class LightSample(NamedTuple):
@@ -129,20 +169,84 @@ def sample_li(scene: sb.SceneTables, light_id, ref_p, ref_ng, u2
         torch.where(cos_spot > cos_falloff, 1.0, (delta * delta) ** 2))
     li_spot = li_p * falloff[..., None]
 
+    # ---- GONIOMETRIC / PROJECTION (image-modulated point lights) -----
+    # lights/goniometric.cpp:Scale and lights/projection.cpp:Projection:
+    # the outgoing direction in light space indexes an intensity image.
+    image_lights = scene.has_image_lights  # any goniometric/projection light
+    if image_lights:
+        lid = light_id.long()
+        w2l = scene.light_w2l[lid].reshape((-1, 3, 3))
+        tex_id = scene.light_tex[lid]
+        w_out = torch.sum(w2l * (-wi_p)[:, None, :], dim=-1)
+        # Goniometric: lights/goniometric.h:70-71 swaps (y, z) before
+        # SphericalTheta/SphericalPhi; v is pre-flipped to undo the row
+        # flip of sample_texture's imagemap path.
+        theta = torch.arccos(torch.clamp(w_out[..., 1], -1.0, 1.0))
+        phi_g = torch.atan2(w_out[..., 2], w_out[..., 0])
+        phi_g = torch.where(phi_g < 0, phi_g + 2 * math.pi, phi_g)
+        uv_g = torch.stack([phi_g / (2 * math.pi), 1.0 - theta / math.pi],
+                           dim=-1)
+        # Projection: perspective divide onto the fov screen window.
+        tan_half = torch.clamp(par[..., 0], min=1e-6)
+        aspect = torch.clamp(par[..., 1], min=1e-6)
+        zl = w_out[..., 2]
+        safe_z = torch.where(torch.abs(zl) > 1e-6, zl, 1.0)
+        sx = w_out[..., 0] / (safe_z * tan_half)
+        sy = w_out[..., 1] / (safe_z * tan_half)
+        sw = torch.where(aspect > 1.0, aspect, 1.0)
+        sh = torch.where(aspect > 1.0, 1.0, 1.0 / aspect)
+        u_pr = (sx / sw + 1.0) * 0.5
+        v_pr = (sy / sh + 1.0) * 0.5
+        in_frustum = ((zl > 1e-3) & (u_pr >= 0) & (u_pr <= 1)
+                      & (v_pr >= 0) & (v_pr <= 1))
+        # Both lookups as one call over 2R lanes.  A light's texture is
+        # always an image row (scene/build.py add_image), so the lookup
+        # evaluates that kind alone: every lane's value is unchanged.
+        images = scene.textures._replace(kinds_static=(KIND_IMAGE,),
+                                         has_children=False)
+        gain = sample_texture(
+            images, torch.cat([tex_id, tex_id]),
+            torch.cat([uv_g, torch.stack([u_pr, v_pr], dim=-1)]))
+        has_tex = (tex_id >= 0)[..., None]
+        li_gonio = li_p * torch.where(has_tex, gain[:R], 1.0)
+        gain_p = torch.where(has_tex, gain[R:], 1.0)
+        li_proj = li_p * torch.where(in_frustum[..., None], gain_p, 0.0)
+
     # ---- DISTANT -----------------------------------------------------
     wi_d = pos  # stored direction toward light
     li_d = L
     dist_d = torch.full((R,), 2.0, device=ref_p.device) * scene.world_radius
 
-    # ---- INFINITE (constant) -----------------------------------------
-    uu, vv = u2[..., 0], u2[..., 1]
+    # ---- INFINITE ----------------------------------------------------
+    # pdf = map_pdf / (2 pi^2 sin(theta)) (lights/infinite.cpp:Sample_Li);
+    # with an environment image the (u,v) draw importance-samples the
+    # luminance*sin(theta) Distribution2D, else map_pdf = 1.
+    has_env = scene.env_light_id >= 0
+    if has_env:
+        with torch.profiler.record_function("lights.env_map"):
+            He, We = scene.env_map.shape[:2]
+            vrow, ucol = _env_sample(scene, u2)
+            uu = (ucol.to(torch.float32) + 0.5) / We
+            vv = (vrow.to(torch.float32) + 0.5) / He
+            map_pdf = scene.env_pdf_uv[vrow, ucol]
+            li_inf = scene.env_map[vrow, ucol]
+    else:
+        uu, vv = u2[..., 0], u2[..., 1]
+        map_pdf = 1.0
+        li_inf = L
     theta = vv * math.pi
     phi_i = uu * 2.0 * math.pi
     st = torch.sin(theta)
     wi_inf = cm.spherical_direction(st, torch.cos(theta), phi_i)
+    if has_env:
+        with torch.profiler.record_function("lights.env_map"):
+            # Light-to-world: invert the stored world-to-light transform.
+            l2w = torch.linalg.inv_ex(scene.env_world_to_light)[0]
+            wi_inf = cm.transform_vector(l2w, wi_inf)
     pdf_inf = torch.where(
         st > 1e-7,
-        1.0 / (2.0 * math.pi * math.pi * torch.clamp(st, min=1e-7)), 0.0)
+        map_pdf / (2.0 * math.pi * math.pi * torch.clamp(st, min=1e-7)),
+        0.0)
     dist_inf = dist_d
 
     # ---- Select per kind --------------------------------------------
@@ -153,6 +257,10 @@ def sample_li(scene: sb.SceneTables, light_id, ref_p, ref_ng, u2
     is_dist = kind == sb.LIGHT_DISTANT
     is_inf = kind == sb.LIGHT_INFINITE
     is_pointlike = is_pt | is_spot
+    if image_lights:
+        is_gonio = kind == sb.LIGHT_GONIO
+        is_proj = kind == sb.LIGHT_PROJ
+        is_pointlike = is_pointlike | is_gonio | is_proj
 
     wi = torch.where(is_tri[..., None], wi_tn, 0.0)
     wi = torch.where(is_sph[..., None], wi_sn, wi)
@@ -169,8 +277,11 @@ def sample_li(scene: sb.SceneTables, light_id, ref_p, ref_ng, u2
     li = torch.where(is_sph[..., None], li_s, li)
     li = torch.where(is_pt[..., None], li_p, li)
     li = torch.where(is_spot[..., None], li_spot, li)
+    if image_lights:
+        li = torch.where(is_gonio[..., None], li_gonio, li)
+        li = torch.where(is_proj[..., None], li_proj, li)
     li = torch.where(is_dist[..., None], li_d, li)
-    li = torch.where(is_inf[..., None], L, li)
+    li = torch.where(is_inf[..., None], li_inf, li)
 
     dist = torch.where(is_tri, dist_t, 0.0)
     dist = torch.where(is_sph, dist_s, dist)
@@ -216,11 +327,20 @@ def pdf_li(scene: sb.SceneTables, light_id, ref_p, wi, hit_p, hit_ng,
     else:
         pdf_sph = torch.zeros_like(pdf_area)
 
-    theta = torch.arccos(torch.clamp(wi[..., 2], -1.0, 1.0))
+    # Infinite light: direction -> (u,v) -> map pdf (infinite.cpp:Pdf_Li).
+    if scene.env_light_id >= 0:
+        with torch.profiler.record_function("lights.env_map"):
+            vrow, ucol, theta = _env_texel(
+                scene, cm.transform_vector(scene.env_world_to_light, wi))
+            map_pdf = scene.env_pdf_uv[vrow, ucol]
+    else:
+        theta = torch.arccos(torch.clamp(wi[..., 2], -1.0, 1.0))
+        map_pdf = 1.0
     st = torch.sin(theta)
     pdf_inf = torch.where(
         st > 1e-7,
-        1.0 / (2.0 * math.pi * math.pi * torch.clamp(st, min=1e-7)), 0.0)
+        map_pdf / (2.0 * math.pi * math.pi * torch.clamp(st, min=1e-7)),
+        0.0)
 
     pdf = torch.where(kind == sb.LIGHT_AREA_TRI, pdf_area, 0.0)
     pdf = torch.where(kind == sb.LIGHT_AREA_SPH, pdf_sph, pdf)
@@ -229,14 +349,22 @@ def pdf_li(scene: sb.SceneTables, light_id, ref_p, wi, hit_p, hit_ng,
 
 
 def escaped_radiance(scene: sb.SceneTables, d):
-    """Sum of the (constant) infinite lights' Le for escaped rays."""
+    """Sum of the infinite lights' Le for escaped rays
+    (InfiniteAreaLight::Le: equirect map lookup by direction)."""
     out = torch.zeros(d.shape[:-1] + (3,), device=d.device)
     if scene.light_kind.shape[0] == 0:
         return out
     inf_mask = scene.light_kind == sb.LIGHT_INFINITE
     total = torch.sum(torch.where(inf_mask[:, None], scene.light_L, 0.0),
                       dim=0)
-    return out + total
+    out = out + total
+    if scene.env_light_id >= 0:
+        with torch.profiler.record_function("lights.env_map"):
+            vrow, ucol, _ = _env_texel(scene, cm.transform_vector(
+                scene.env_world_to_light, cm.normalize(d)))
+            # The map light's L is 1 in `total` (folded into the map).
+            out = out - 1.0 + scene.env_map[vrow, ucol]
+    return out
 
 
 def area_light_le(scene: sb.SceneTables, light_id, ng, w):

@@ -3,9 +3,8 @@
 """SceneDescription -> SoA scene tables (host numpy, then tensors).
 
 Copied from the JAX package with its behaviour unchanged for every
-feature the port renders.  Features the slice does not port (hair,
-Fourier and subsurface materials, media, image and
-procedural textures, image lights and environment maps) are refused by
+feature the port renders.  Features the port does not render yet (hair,
+Fourier and subsurface materials, media) are refused by
 ``driver.prepare`` before this module runs; the few table columns they
 would fill are dropped here.
 """
@@ -115,7 +114,7 @@ class SceneTables(NamedTuple):
     mat_rough_v: Any
     mat_sigma: Any
     mat_kd_tex: Any  # [M] texture id for Kd or -1
-    textures: Any  # TextureTable (numpy; no lookups in the slice)
+    textures: Any  # TextureTable
     # Lights
     light_kind: Any  # [L]
     light_L: Any  # [L,3]
@@ -125,20 +124,36 @@ class SceneTables(NamedTuple):
     light_aux: Any  # [L,3] spot direction
     light_params: Any  # [L,2] spot cos angles
     light_area: Any  # [L] surface area (area lights)
+    light_w2l: Any  # [L,9] world-to-light rotation (gonio/projection)
+    light_tex: Any  # [L] modulation texture id or -1 (gonio/projection)
+    # Environment map (first infinite light with an image; 1x1 else)
+    env_map: Any  # [He,We,3] radiance texels (already scaled by L*scale)
+    env_marginal_cdf: Any  # [He] row-marginal CDF over luminance*sin(theta)
+    env_cond_cdf: Any  # [He,We] per-row conditional CDF
+    env_pdf_uv: Any  # [He,We] pdf over (u,v) in [0,1]^2
+    env_world_to_light: Any  # [4,4]
+    env_light_id: int  # light id using the map, or -1
     # World bound
     world_center: Any
     world_radius: Any
+    # Host flags (statmc_tpu/scene/build.py SceneFlags): they gate the
+    # texture lookups and the image-light block.
+    has_textures: bool = False  # any material with a Kd texture row
+    has_image_lights: bool = False  # any goniometric/projection light
 
     def to_device(self, device="cpu") -> "SceneTables":
         """numpy -> tensors on `device` (f32 floats, int32 ids, bool
-        flags); world_radius becomes a Python float."""
+        flags); world_radius becomes a Python float, env_light_id an
+        int, and the texture table's arrays tensors."""
         def conv(x):
             if isinstance(x, np.ndarray):
                 return torch.tensor(x, device=device)
             return x
 
         return SceneTables(*[conv(x) for x in self])._replace(
-            world_radius=float(self.world_radius))
+            world_radius=float(self.world_radius),
+            env_light_id=int(self.env_light_id),
+            textures=self.textures.to_device(device))
 
 
 def _material_row(md: MaterialDesc | None, textures) -> dict:
@@ -686,10 +701,19 @@ def build_scene(desc: SceneDescription,
         elif ld.light_type == "infinite":
             L = p.find_spectrum("L", np.ones(3, np.float32))
             scale = p.find_spectrum("scale", np.ones(3, np.float32))
+            mapname = p.find_one("mapname")
             rec = dict(kind=LIGHT_INFINITE, L=L * scale, prim=0,
                        count=0, pos=np.zeros(3, np.float32),
                        aux=np.zeros(3, np.float32),
                        par=np.zeros(2, np.float32), area=0.0, tris=[])
+            if mapname:
+                path = mapname if os.path.isabs(mapname) else os.path.join(
+                    ld.cwd, mapname)
+                if os.path.exists(path):
+                    rec["env_path"] = path
+                    rec["env_l2w"] = l2w
+                else:
+                    missing_assets.append(path)
             lights.append(rec)
         elif ld.light_type == "spot":
             I = p.find_spectrum("I", np.ones(3, np.float32))
@@ -709,6 +733,39 @@ def build_scene(desc: SceneDescription,
                 par=np.array([np.cos(np.radians(cone)),
                               np.cos(np.radians(cone - delta))], np.float32),
                 area=0.0, tris=[]))
+        elif ld.light_type in ("goniometric", "projection"):
+            # Point lights modulated by an image: by direction
+            # (lights/goniometric.cpp) or through a projector frustum
+            # (lights/projection.cpp).
+            I = p.find_spectrum("I", np.ones(3, np.float32))
+            scale = p.find_spectrum("scale", np.ones(3, np.float32))
+            pos = cm.np_transform_point(l2w, np.zeros(3, np.float32))
+            w2l = np.linalg.inv(l2w.astype(np.float64))[:3, :3]
+            mapname = p.find_one("mapname")
+            tex = -1
+            aspect = 1.0
+            if mapname is not None:
+                path = (mapname if os.path.isabs(mapname)
+                        else os.path.join(ld.cwd, mapname))
+                tex = tex_builder.add_image(path)
+                if tex >= 0:
+                    row = tex_builder.rows[tex]
+                    aspect = row["width"] / max(row["height"], 1)
+            if ld.light_type == "goniometric":
+                lights.append(dict(
+                    kind=LIGHT_GONIO, L=I * scale, prim=0, count=0,
+                    pos=pos, aux=np.zeros(3, np.float32),
+                    par=np.zeros(2, np.float32), area=0.0, tris=[],
+                    w2l=w2l.astype(np.float32).reshape(-1), tex=tex))
+            else:
+                fov = float(p.find_one("fov", 45.0))
+                lights.append(dict(
+                    kind=LIGHT_PROJ, L=I * scale, prim=0, count=0,
+                    pos=pos, aux=np.zeros(3, np.float32),
+                    par=np.array([np.tan(np.radians(fov) / 2), aspect],
+                                 np.float32),
+                    area=0.0, tris=[],
+                    w2l=w2l.astype(np.float32).reshape(-1), tex=tex))
     # Explode mesh area lights into one light per triangle (pbrt
     # semantics) and drop records whose shapes were skipped.
     new_lights: list[dict] = []
@@ -753,6 +810,39 @@ def build_scene(desc: SceneDescription,
             l["area"] = float(
                 0.5 * np.linalg.norm(np.cross(p1[t] - p0[t], p2[t] - p0[t]))
             )
+
+    # Environment map tables (InfiniteAreaLight, src/lights/infinite.cpp:
+    # luminance*sin(theta)-weighted Distribution2D over the equirect map).
+    env_map = np.zeros((1, 1, 3), np.float32)
+    env_marg = np.ones((1,), np.float32)
+    env_cond = np.ones((1, 1), np.float32)
+    env_pdf = np.ones((1, 1), np.float32)
+    env_w2l = np.eye(4, dtype=np.float32)
+    env_lid = -1
+    for li, l in enumerate(lights):
+        if l["kind"] == LIGHT_INFINITE and "env_path" in l:
+            from ..io.image import read_image
+
+            try:
+                img = read_image(l["env_path"]).astype(np.float32)
+            except (OSError, ValueError):
+                continue
+            img = img * l["L"][None, None, :]
+            He, We = img.shape[:2]
+            lum = img @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+            theta = (np.arange(He) + 0.5) / He * np.pi
+            w = lum * np.sin(theta)[:, None] + 1e-12
+            marg = w.sum(axis=1)
+            env_pdf = (w / w.sum() * (He * We)).astype(np.float32)  # pdf(u,v)
+            env_marg = (np.cumsum(marg) / marg.sum()).astype(np.float32)
+            env_cond = (np.cumsum(w, axis=1)
+                        / w.sum(axis=1, keepdims=True)).astype(np.float32)
+            env_map = img
+            env_w2l = np.linalg.inv(
+                l["env_l2w"].astype(np.float64)).astype(np.float32)
+            env_lid = li
+            l["L"] = np.ones(3, np.float32)  # folded into the map
+            break
 
     if not mat_rows:
         mat_rows.append(_material_row(None, desc.textures))
@@ -832,8 +922,23 @@ def build_scene(desc: SceneDescription,
                       if lights else np.zeros((0, 2), np.float32)),
         light_area=np.asarray([l["area"] for l in lights], np.float32)
         if lights else np.zeros((0,), np.float32),
+        light_w2l=(np.stack([
+            l.get("w2l", np.eye(3, dtype=np.float32).reshape(-1))
+            for l in lights]).astype(np.float32)
+            if lights else np.zeros((0, 9), np.float32)),
+        light_tex=(np.asarray([l.get("tex", -1) for l in lights], np.int32)
+                   if lights else np.zeros((0,), np.int32)),
+        env_map=env_map,
+        env_marginal_cdf=env_marg,
+        env_cond_cdf=env_cond,
+        env_pdf_uv=env_pdf,
+        env_world_to_light=env_w2l,
+        env_light_id=int(env_lid),
         world_center=wcenter.astype(np.float32),
         world_radius=np.float32(wradius),
+        has_textures=bool(np.any(mat_kd_tex >= 0)),
+        has_image_lights=any(
+            l["kind"] in (LIGHT_GONIO, LIGHT_PROJ) for l in lights),
     )
 
 

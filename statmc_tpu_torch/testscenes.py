@@ -1,4 +1,6 @@
-# Copied from statmc_tpu/testscenes.py (numpy host code; imports rewritten, behaviour unchanged).
+# Copied from statmc_tpu/testscenes.py (numpy host code; imports rewritten,
+# behaviour unchanged); the material overrides of staircase_proxy and
+# terrain_proxy and the textured scenes at the end are the port's own.
 """Procedural test scenes.
 
 The reference's scene assets (PLY meshes, textures) are downloaded
@@ -42,12 +44,16 @@ def _mesh_stmt(verts, faces, indent="  "):
 
 
 def staircase_proxy(n_steps: int = 24, clutter: int = 60,
-                    seed: int = 7) -> str:
+                    seed: int = 7, shell_mat: str | None = None,
+                    stair_mat: str | None = None,
+                    clutter_mats: list | None = None) -> str:
     """A staircase-like room scene, fully self-contained pbrt text.
 
     ~(12 * (n_steps + clutter + 6)) triangles + a few spheres; glossy
     substrate steps, matte walls, metal rail, glass sphere, one area
-    light -- the material mix of the paper's staircase scene.
+    light -- the material mix of the paper's staircase scene.  The
+    *_mat arguments replace the room shell's, the steps' and (cycling)
+    the clutter boxes' Material lines; the geometry stays the same.
     """
     rng = np.random.default_rng(seed)
     out = []
@@ -60,17 +66,16 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
         ((8.0, 0.0, -8), (8.2, 10.0, 8)),  # right wall
         ((-8, 9.8, -8), (8, 10.0, 8)),  # ceiling
     ]
-    out.append('Material "matte" "rgb Kd" [0.58 0.57 0.55]\n')
+    out.append(shell_mat or 'Material "matte" "rgb Kd" [0.58 0.57 0.55]\n')
     for lo, hi in room:
         v, f = _box_tris(lo, hi)
         out.append(_mesh_stmt(v, f))
 
     # Stairs: substrate (glossy wood-like).
-    out.append(
+    out.append(stair_mat or (
         'Material "substrate" "rgb Kd" [0.45 0.30 0.18] '
         '"rgb Ks" [0.04 0.04 0.04] "float uroughness" [0.1] '
-        '"float vroughness" [0.1] "bool remaproughness" ["false"]\n'
-    )
+        '"float vroughness" [0.1] "bool remaproughness" ["false"]\n'))
     for i in range(n_steps):
         y = 0.35 * i
         z = -6.0 + 0.5 * i
@@ -91,11 +96,12 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
         out.append("AttributeEnd\n")
 
     # Clutter boxes: matte random colors.
-    for _ in range(clutter):
+    for i in range(clutter):
         c = rng.random(3) * 0.7 + 0.1
         p = rng.random(3) * np.array([12, 3, 12]) - np.array([6, 0, 6])
         s = rng.random(3) * 0.8 + 0.2
         out.append(
+            clutter_mats[i % len(clutter_mats)] if clutter_mats else
             f'Material "matte" "rgb Kd" [{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}]\n'
         )
         v, f = _box_tris(tuple(p), tuple(p + s))
@@ -120,7 +126,9 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
     return body
 
 
-def terrain_proxy(n: int = 256, seed: int = 11) -> str:
+def terrain_proxy(n: int = 256, seed: int = 11, floor_mat: str | None = None,
+                  sphere_mats: list | None = None,
+                  clutter_mat: str | None = None) -> str:
     """A >=100k-triangle ENCLOSED scene for large-scene benchmarking.
 
     One heightfield floor of 2*(n-1)^2 triangles (n=256 -> 130050)
@@ -132,7 +140,9 @@ def terrain_proxy(n: int = 256, seed: int = 11) -> str:
     shades and runs NEE; an open scene leaks most paths to the sky
     after one bounce and measures mostly dead lanes.  The reference
     scenes' PLY assets are not mounted, so scale comes from procedural
-    geometry.
+    geometry.  floor_mat, sphere_mats (indexed like the default four,
+    None entries keeping the default) and clutter_mat replace Material
+    lines; the geometry stays the same.
     """
     rng = np.random.default_rng(seed)
     out = []
@@ -160,9 +170,10 @@ def terrain_proxy(n: int = 256, seed: int = 11) -> str:
         z += amp * np.sin(6.28 * f * uu + pu) * np.cos(6.28 * f * vv + pv)
     z = (z - z.min()) / max(float(np.ptp(z)), 1e-9) * 0.15
     pz = " ".join(f"{v:.4f}" for v in z.reshape(-1))
-    out.append('Material "substrate" "rgb Kd" [0.35 0.3 0.25] '
-               '"rgb Ks" [0.05 0.05 0.05] "float uroughness" [0.15] '
-               '"float vroughness" [0.15] "bool remaproughness" ["false"]\n')
+    out.append(floor_mat or (
+        'Material "substrate" "rgb Kd" [0.35 0.3 0.25] '
+        '"rgb Ks" [0.05 0.05 0.05] "float uroughness" [0.15] '
+        '"float vroughness" [0.15] "bool remaproughness" ["false"]\n'))
     out.append("AttributeBegin\n")
     out.append("Translate -8 0 -8\nScale 16 1 16\nRotate -90 1 0 0\n")
     out.append(f'Shape "heightfield" "integer nu" [{n}] "integer nv" [{n}] '
@@ -183,7 +194,8 @@ def terrain_proxy(n: int = 256, seed: int = 11) -> str:
         p = rng.random(2) * 12 - 6
         r = rng.random() * 0.35 + 0.15
         out.append("AttributeBegin\n")
-        out.append(mats[i % len(mats)])
+        alt = sphere_mats[i % len(sphere_mats)] if sphere_mats else None
+        out.append(alt or mats[i % len(mats)])
         out.append(f"Translate {p[0]:.3f} {0.6 + r:.3f} {p[1]:.3f}\n")
         out.append(f'Shape "sphere" "float radius" [{r:.3f}]\n')
         out.append("AttributeEnd\n")
@@ -193,9 +205,9 @@ def terrain_proxy(n: int = 256, seed: int = 11) -> str:
         c = rng.random(3) * 0.7 + 0.1
         p = rng.random(3) * np.array([14, 1.2, 14]) - np.array([7, -0.3, 7])
         s = rng.random(3) * 0.5 + 0.1
-        out.append(
+        out.append(clutter_mat or (
             f'Material "matte" "rgb Kd" [{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}]\n'
-        )
+        ))
         v, f = _box_tris(tuple(p), tuple(p + s))
         out.append(_mesh_stmt(v, f))
 
@@ -255,3 +267,146 @@ def scene_text(width=512, height=512, spp=4, iterations=5, maxdepth=16,
         'Camera "perspective" "float fov" [55]\n'
         "WorldBegin\n" + body + "WorldEnd\n"
     )
+
+
+# ---------------------------------------------------------------------------
+# Textured scenes: every texture kind, an HDR environment map and an
+# image-modulated light, with their images written by the port's own
+# writers (io/image.py, io/exr.py).
+
+
+def texture_assets(directory: str, seed: int = 0, floor: int = 2048,
+                   sky: tuple = (2048, 1024), light: int = 512) -> None:
+    """Write the textured scenes' images into `directory`, made from
+    `seed`: floor.png (floor x floor, 8-bit sRGB: tiles of 8 texels
+    with noise on top, so every MIP level differs), sky.exr (sky[0] x
+    sky[1] HDR: a sun-like hot spot over a sky gradient) and light.png
+    (light x light, the goniometric/projection light's image)."""
+    import os
+
+    from .io.exr import write_exr
+    from .io.image import write_png
+
+    rng = np.random.default_rng(seed)
+    tiles = rng.random((floor // 8, floor // 8, 3)).repeat(8, 0).repeat(8, 1)
+    img = 0.05 + 0.6 * tiles + 0.3 * rng.random((floor, floor, 3))
+    write_png(os.path.join(directory, "floor.png"), img.astype(np.float32))
+    W, H = sky
+    v = (np.arange(H) + 0.5) / H  # theta / pi
+    u = (np.arange(W) + 0.5) / W  # phi / 2 pi
+    grad = np.stack([0.3 + 0.4 * v, 0.45 + 0.35 * v, 0.9 - 0.3 * v], -1)
+    sky_img = np.broadcast_to(grad[:, None, :], (H, W, 3)).copy()
+    du = np.minimum(np.abs(u - 0.3), 1.0 - np.abs(u - 0.3))[None, :]
+    r2 = (du * 2.0) ** 2 + (v[:, None] - 0.25) ** 2
+    sky_img += (400.0 * np.exp(-r2 / 2e-4))[..., None] * np.array(
+        [1.0, 0.9, 0.75])
+    write_exr(os.path.join(directory, "sky.exr"), sky_img.astype(np.float32))
+    yy, xx = np.mgrid[0:light, 0:light] / max(light - 1, 1)
+    ring = 0.5 + 0.5 * np.cos(12.0 * np.hypot(xx - 0.5, yy - 0.5))
+    lt = np.stack([ring, 0.3 + 0.7 * xx, 0.3 + 0.7 * yy], -1)
+    write_png(os.path.join(directory, "light.png"), lt.astype(np.float32))
+
+
+# Texture statements for every kind; the floor image is the one
+# texture_assets writes.
+_TEXTURES = (
+    'Texture "floor" "spectrum" "imagemap" "string filename" ["floor.png"] '
+    '"float uscale" [8] "float vscale" [8]\n'
+    'Texture "checks" "spectrum" "checkerboard" "rgb tex1" [0.7 0.6 0.5] '
+    '"rgb tex2" [0.15 0.2 0.3] "float uscale" [4] "float vscale" [4]\n'
+    'Texture "fbm" "spectrum" "fbm" "integer octaves" [6] '
+    '"float roughness" [0.6]\n'
+    'Texture "wrinkled" "spectrum" "wrinkled" "integer octaves" [5] '
+    '"float roughness" [0.5]\n'
+    'Texture "windy" "spectrum" "windy"\n'
+    'Texture "marble" "spectrum" "marble" "integer octaves" [8] '
+    '"float roughness" [0.5] "float scale" [3] "float variation" [0.4]\n'
+    'Texture "dots" "spectrum" "dots" "rgb inside" [0.8 0.2 0.1] '
+    '"rgb outside" [0.2 0.5 0.7] "float uscale" [6] "float vscale" [6]\n'
+    'Texture "uv" "spectrum" "uv" "float uscale" [2] "float vscale" [2]\n'
+    'Texture "bilerp" "spectrum" "bilerp" "rgb v00" [0.8 0.1 0.1] '
+    '"rgb v01" [0.1 0.8 0.1] "rgb v10" [0.1 0.1 0.8] "rgb v11" [0.7 0.7 0.2]\n'
+    'Texture "mix" "spectrum" "mix" "texture tex1" "checks" '
+    '"texture tex2" "dots" "float amount" [0.35]\n'
+    'Texture "scale" "spectrum" "scale" "texture tex1" "floor" '
+    '"rgb tex2" [0.9 0.7 0.5]\n'
+)
+_SPHERE_TEXTURES = ("fbm", "wrinkled", "windy", "marble", "dots", "uv",
+                    "bilerp", "mix", "scale")
+
+
+def _textured(name: str, family: str = "matte") -> str:
+    if family == "plastic":
+        return (f'Material "plastic" "texture Kd" "{name}" "rgb Ks" '
+                '[0.2 0.2 0.2] "float roughness" [0.1]\n')
+    return f'Material "matte" "texture Kd" "{name}"\n'
+
+
+def textured_scene_text(directory: str, width=32, height=24, spp=2,
+                        iterations=2, maxdepth=4, denoise=True,
+                        filterradius=2, seed: int = 0, floor: int = 64,
+                        sky: tuple = (64, 32), light: int = 16,
+                        env: bool = True, clutter=_SPHERE_TEXTURES,
+                        extra_integrator: str = "") -> str:
+    """The staircase proxy with textures (the room shell's Kd an
+    imagemap, the steps a checkerboard, the clutter boxes cycling through
+    `clutter`, by default every other kind), an environment-mapped
+    infinite light (env) and a goniometric light above the steps; the
+    images are written into `directory` (texture_assets)."""
+    texture_assets(directory, seed, floor, sky, light)
+    body = staircase_proxy(
+        shell_mat=_textured("floor"),
+        stair_mat=('Material "substrate" "texture Kd" "checks" '
+                   '"rgb Ks" [0.04 0.04 0.04] "float uroughness" [0.1] '
+                   '"float vroughness" [0.1] "bool remaproughness" '
+                   '["false"]\n'),
+        clutter_mats=[_textured(t) for t in clutter])
+    return scene_text(width=width, height=height, spp=spp,
+                      iterations=iterations, maxdepth=maxdepth,
+                      denoise=denoise, filterradius=filterradius,
+                      extra_integrator=extra_integrator,
+                      body=_TEXTURES + body + _image_lights(env,
+                                                            "goniometric"))
+
+
+def _image_lights(env: bool, light_kind: str) -> str:
+    """An environment-mapped infinite light (env) and a goniometric or
+    projection light pointing down from near the ceiling."""
+    fov = ' "float fov" [50]' if light_kind == "projection" else ""
+    return (('LightSource "infinite" "string mapname" ["sky.exr"]\n'
+             if env else "")
+            + "AttributeBegin\nTranslate -1 7.5 -2\nRotate 90 1 0 0\n"
+            f'LightSource "{light_kind}" "rgb I" [40 38 36] '
+            f'"string mapname" ["light.png"]{fov}\nAttributeEnd\n')
+
+
+def textured_terrain_text(directory: str, width=1280, height=720, spp=4,
+                          iterations=1, maxdepth=8, n: int = 256,
+                          denoise=False, seed: int = 0, floor: int = 2048,
+                          sky: tuple = (2048, 1024), light: int = 512,
+                          spheres=_SPHERE_TEXTURES) -> str:
+    """The terrain proxy with its floor's Kd an imagemap (floor x floor,
+    uscale = vscale = 8), checkerboard clutter boxes, the matte and
+    plastic spheres textured cycling through `spheres` (by default fbm,
+    wrinkled, windy, marble, dots, uv, bilerp, mix and scale), an
+    environment-mapped infinite light and a projection light; the images
+    are written into `directory`."""
+    texture_assets(directory, seed, floor, sky, light)
+    names = iter(tuple(spheres) * 24)
+    sphere_mats = []
+    for i in range(48):  # metal and glass stay, matte and plastic textured
+        fam = ("metal", "glass", "matte", "plastic")[i % 4]
+        sphere_mats.append(_textured(next(names), fam)
+                           if fam in ("matte", "plastic") else None)
+    body = terrain_proxy(
+        n=n, floor_mat=('Material "substrate" "texture Kd" "floor" '
+                        '"rgb Ks" [0.05 0.05 0.05] "float uroughness" '
+                        '[0.15] "float vroughness" [0.15] '
+                        '"bool remaproughness" ["false"]\n'),
+        sphere_mats=sphere_mats, clutter_mat=_textured("checks"))
+    text = terrain_scene_text(width=width, height=height, spp=spp,
+                              iterations=iterations, maxdepth=maxdepth, n=n,
+                              denoise=denoise)
+    head, tail = text.split("WorldBegin\n")
+    return (head + "WorldBegin\n" + _TEXTURES + body
+            + _image_lights(True, "projection") + "WorldEnd\n")

@@ -1,7 +1,9 @@
 """Kernels B1-B4 against their plain PyTorch versions on the card (B2 also
 as the backward kernel of denoise/grad.py's FilterApply), an LD-sampler
-render on the card against the CPU, and the exact lockstep replay of
-tiny.pbrt on the card against the C++ reference's PFMs.
+render and a textured render on the card against the CPU, the
+environment map's sampling search at 2^20 lanes on the card against the
+CPU, and the exact lockstep replay of tiny.pbrt on the card against the
+C++ reference's PFMs.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
 and skip without an NVIDIA GPU.  The file imports torch and the port
@@ -423,3 +425,75 @@ def test_exact_replay_of_tiny_on_the_card(cuda):
     for name, x in (("mean", mean), ("m2", m2), ("m3", m3)):
         np.testing.assert_allclose(x.reshape(16, 16, 3), ref(f"t0-b0-{name}"),
                                    atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_textured_render_card_matches_cpu(cuda, tmp_path):
+    """The textured staircase (every texture kind, an environment map, a
+    goniometric light) on the card against the CPU: equal sample counts
+    and ray totals, every buffer within rtol 1e-4 on 99% of its pixels;
+    kernels B1 and B2 launched on the card."""
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import textured_scene_text
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(textured_scene_text(str(tmp_path), width=32, height=24))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        b1, b2 = TF.intersect_tiles.launches, FC.run_filter.launches
+        r = load(str(path), device=dev)
+        r.progress = False
+        runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
+        if dev == "cuda":
+            assert TF.intersect_tiles.launches > b1
+            assert FC.run_filter.launches > b2
+    assert runs["cuda"][0] == runs["cpu"][0]
+    gpu, cpu = runs["cuda"][1], runs["cpu"][1]
+    assert gpu.keys() == cpu.keys()
+    for k in cpu:
+        if k.endswith("-n"):
+            np.testing.assert_array_equal(gpu[k], cpu[k])
+            continue
+        assert np.isfinite(gpu[k]).all(), k
+        close = np.isclose(gpu[k], cpu[k], rtol=1e-4, atol=1e-6)
+        assert (close.all(-1) if close.ndim == 3 else close).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_env_map_search_at_full_width(cuda):
+    """render/lights.py's environment-map search on 2^20 lanes over a
+    2048x1024 map: rows and columns on the card equal the CPU's, and the
+    call's peak memory is far below the 8.6 GB that gathering one CDF
+    row per lane would take."""
+    from types import SimpleNamespace
+
+    from statmc_tpu_torch.render import lights as TL
+
+    rng = np.random.default_rng(0)
+    He, We, R = 1024, 2048, 1 << 20
+    w = rng.random((He, We)) ** 4 + 1e-12
+    marg = w.sum(1)
+    tables = dict(
+        env_marginal_cdf=(np.cumsum(marg) / marg.sum()).astype(np.float32),
+        env_cond_cdf=(np.cumsum(w, 1) / w.sum(1, keepdims=True)
+                      ).astype(np.float32))
+    u = rng.random((R, 2)).astype(np.float32)
+    u[:4096, 0] = tables["env_cond_cdf"][rng.integers(0, He, 4096),
+                                         rng.integers(0, We, 4096)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = SimpleNamespace(**{k: torch.as_tensor(v, device=dev)
+                                   for k, v in tables.items()})
+        u_d = torch.as_tensor(u, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out[dev.type] = [x.cpu() for x in TL._env_sample(scene, u_d)]
+        if dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated() - base
+            assert peak < 1 << 30, peak
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert out["cpu"][1].max() <= We - 1 and out["cpu"][0].max() <= He - 1
