@@ -10,22 +10,27 @@ import torch
 from .accel.fused import FusedTris
 from .accel.twolevel import TwoLevelTris
 from .render.lightdistrib import LightDistribution
+from .render.sss import SSSTables
 from .scene.build import SceneTables
 from .scene.textures import TextureTable
 
 
 def scene_tables(scene, device="cpu") -> SceneTables:
     """A JAX-package SceneTables -> the port's SceneTables on `device`
-    (its texture table, environment-map tables and image-light rows
-    included; the JAX package's SceneFlags become the port's two
-    flags)."""
-    flags = {"has_textures": bool(scene.flags.has_textures),
-             "has_image_lights": bool(scene.flags.has_image_lights)}
+    (its texture table, environment-map tables, image-light rows and
+    BSSRDF tables included; the JAX package's SceneFlags become the
+    port's four flags)."""
+    flags = {f: bool(getattr(scene.flags, f))
+             for f in ("has_textures", "has_image_lights", "has_hair",
+                       "has_sss")}
     tex = TextureTable(*[x if isinstance(x, (bool, tuple, type(None)))
                          else np.asarray(x) for x in scene.textures])
+    sss = (None if scene.sss is None
+           else SSSTables(*[np.asarray(x) for x in scene.sss]))
     fields = {f: np.asarray(getattr(scene, f)) for f in SceneTables._fields
-              if f not in ("textures", *flags)}
-    return SceneTables(textures=tex, **fields, **flags).to_device(device)
+              if f not in ("textures", "sss", *flags)}
+    return SceneTables(textures=tex, sss=sss, **fields,
+                       **flags).to_device(device)
 
 
 def fused_tris(ft, device="cpu") -> FusedTris:

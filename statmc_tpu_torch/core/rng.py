@@ -34,6 +34,16 @@ SLOT_RR = 5
 SLOT_BSDF_COMPONENT = 6
 SLOT_BSDF_COMPONENT_PC = 7
 N_SLOTS = 8  # draw sites per bounce
+# BSSRDF draw sites (render/sss.py; statpath.cpp:892-926).  They always
+# draw threefry uniforms (uniform_1d/2d) in every sampler mode and stay
+# out of the LD and lockstep slot maps, as in the JAX package; 8-12 are
+# its media and lens slots, not ported yet.
+SLOT_SSS_AXIS = 13  # 1D axis/channel/chain selector (pbrt reuses u1)
+SLOT_SSS_RADIUS = 14  # 2D profile radius + phi
+SLOT_SSS_LIGHT_SELECT = 15  # 1D light pick at the exit vertex
+SLOT_SSS_LIGHT = 16  # 2D light surface sample at the exit vertex
+SLOT_SSS_NEE_BSDF = 17  # 2D Sw-lobe sample inside EstimateDirect
+SLOT_SSS_SW = 18  # 2D Sw-lobe continuation sample
 
 # Sampler modes (statmc_tpu/core/rng.py:171-201).
 MODE_RANDOM = 0

@@ -89,8 +89,7 @@ def _check_supported(desc: SceneDescription) -> None:
     mats = [sd.material for sd in desc.shapes] + list(
         desc.named_materials.values())
     for md in mats:
-        if md is not None and md.mat_type in ("hair", "fourier",
-                                              "kdsubsurface", "subsurface"):
+        if md is not None and md.mat_type == "fourier":
             raise _unported(f'Material "{md.mat_type}"', _ITEM_REST)
 
 
@@ -195,6 +194,7 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
         direct_only=direct_only,
         null_extra=8 if has_null else 0,
         mat_types=frozenset(np.unique(scene_np.mat_type).tolist()),
+        enable_sss=scene_np.sss is not None,
     )
 
     pb = desc.integrator_params.find_ints("pixelbounds")

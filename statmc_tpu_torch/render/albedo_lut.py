@@ -19,8 +19,10 @@ from . import bsdf as B
 
 
 def _mc_albedo(mat_lanes: B.MaterialLanes, cos_thetas, n_samples: int, key,
-               chunk: int = 64):
-    """rho(wo) = E[f |cos wi| / pdf] per lane (reflection side only).
+               chunk: int = 64, full_sphere=None):
+    """rho(wo) = E[f |cos wi| / pdf] per lane, over the reflection side,
+    or over the whole sphere on the lanes of the [G] bool mask
+    full_sphere (hair fibres scatter through TT/TRT).
 
     Draw i uses fold_in(key, i) exactly as the JAX fori_loop does; the
     samples are evaluated in batches of `chunk` draws and summed in draw
@@ -36,13 +38,17 @@ def _mc_albedo(mat_lanes: B.MaterialLanes, cos_thetas, n_samples: int, key,
                            torch.arange(i0, i0 + n, device=dev))
         u2 = rng.uniform(keys, (G, 2)).reshape(n * G, 2)
         uc = rng.uniform(rng.fold_in(keys, 1), (G,)).reshape(n * G)
-        lanes = B.MaterialLanes(*[x.repeat((n,) + (1,) * (x.dim() - 1))
-                                  for x in mat_lanes])
+        lanes = B.MaterialLanes(*[
+            None if x is None else x.repeat((n,) + (1,) * (x.dim() - 1))
+            for x in mat_lanes])
         smp = B.sample(lanes, wo.repeat(n, 1), u2, uc)
         w = smp.f * torch.abs(smp.wi[..., 2:3]) / torch.clamp(
             smp.pdf, min=1e-9)[..., None]
         w = torch.where(torch.isfinite(w), w, 0.0)
-        w = torch.where(smp.wi[..., 2:3] > 0, w, 0.0).reshape(n, G, 3)
+        keep = smp.wi[..., 2:3] > 0
+        if full_sphere is not None:
+            keep = keep | full_sphere.repeat(n)[:, None]
+        w = torch.where(keep, w, 0.0).reshape(n, G, 3)
         for j in range(n):
             acc = acc + w[j]
     return acc / n_samples
@@ -63,19 +69,27 @@ def precompute_material_curves(scene: sb.SceneTables, n_cos: int = 16,
 
     ones3 = torch.ones((G, 3), device=dev)
     zeros3 = torch.zeros((G, 3), device=dev)
+    # Hair rows take the Marschner model at h = 0 (sigma_a rides the kt
+    # slot) over the whole sphere, the analogue of the reference's hair
+    # albedo LUT (materials/hair.cpp:171); hairless scenes run none of it.
+    has_hair = bool(torch.any(scene.mat_type == sb.MAT_HAIR))
     base = B.MaterialLanes(
         mat_type=tile(scene.mat_type), kd=ones3, ks=zeros3, kr=zeros3,
         kt=zeros3, eta=tile(scene.mat_eta), k=tile(scene.mat_k),
         rough_u=tile(scene.mat_rough_u), rough_v=tile(scene.mat_rough_v),
-        sigma=tile(scene.mat_sigma))
+        sigma=tile(scene.mat_sigma),
+        hair_h=torch.zeros((G,), device=dev) if has_hair else None)
     rest = base._replace(kd=zeros3, ks=tile(scene.mat_ks),
                          kr=tile(scene.mat_kr), kt=tile(scene.mat_kt))
     cc = cos.repeat(M)
     key = rng.base_key(seed, device=dev)
-    lut_d = _mc_albedo(base, cc, n_samples, key).reshape(M, n_cos, 3)
-    lut_rest = _mc_albedo(rest, cc, n_samples,
-                          rng.fold_in(key, 1)).reshape(M, n_cos, 3)
-    # Only Kd-proportional families keep the kd * lut_d decomposition.
+    sphere = (base.mat_type == sb.MAT_HAIR) if has_hair else None
+    lut_d = _mc_albedo(base, cc, n_samples, key,
+                       full_sphere=sphere).reshape(M, n_cos, 3)
+    lut_rest = _mc_albedo(rest, cc, n_samples, rng.fold_in(key, 1),
+                          full_sphere=sphere).reshape(M, n_cos, 3)
+    # Only Kd-proportional families keep the kd * lut_d decomposition
+    # (hair's full-sphere albedo lives in lut_rest).
     t = scene.mat_type
     kd_linear = ((t == sb.MAT_MATTE) | (t == sb.MAT_PLASTIC)
                  | (t == sb.MAT_UBER) | (t == sb.MAT_SUBSTRATE)

@@ -5,9 +5,12 @@ Every function maps over [R] lanes in the local shading frame (z =
 shading normal); the material families are evaluated branchlessly and
 selected per lane by type id; a textured Kd is looked up per lane
 (scene/textures.py).  Ported families: matte, plastic, metal,
-substrate, uber, translucent, mirror, glass (smooth and rough) and
-disney.  Hair, Fourier and subsurface materials are refused by
-driver.prepare.
+substrate, uber, translucent, mirror, glass (smooth and rough), disney,
+hair (the Marschner model of render/hair.py on lanes with a width
+offset, else the fallback lobe pair) and kdsubsurface/subsurface (their
+FresnelSpecular interface when the scene has BSSRDF tables; the
+integrator's SSS block takes the transmitted lanes).  Fourier materials
+are refused by driver.prepare.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from ..core import math as cm
 from ..scene import build as sb
 from ..scene.textures import sample_texture
+from . import hair
 
 INV_PI = 1.0 / math.pi
 
@@ -54,6 +58,14 @@ class MaterialLanes(NamedTuple):
     rough_u: Any
     rough_v: Any
     sigma: Any
+    # Hair: the width offset h = -1 + 2 v (hair.cpp:221) per lane; None
+    # (no hair in the scene, or no uv) keeps hair lanes on the fallback
+    # lobe pair and runs no Marschner code.
+    hair_h: Any = None
+    # BSSRDF: the SSS table index per lane; None when the scene has no
+    # subsurface tables.  When set, kdsubsurface/subsurface lanes expose
+    # the Kr/Kt FresnelSpecular interface (kdsubsurface.cpp:70-74).
+    sss_id: Any = None
 
 
 def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
@@ -62,23 +74,52 @@ def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
     multiplied by its texture's value at (uv, p), filtered by the
     footprint uv_fp (trilinear) or uv_axes (EWA); untextured lanes sample
     1 and keep their Kd bit for bit, and an untextured scene runs no
-    lookup at all."""
+    lookup at all.  With uv given in a hair scene, hair_h comes from the
+    ribbon's v coordinate (scene/tessellate.py curve(): v in {0, 1}
+    across the strip)."""
     m = mat_id.long()
     kd = scene.mat_kd[m]
     if uv is not None and scene.has_textures:
         kd = kd * sample_texture(scene.textures, scene.mat_kd_tex[m], uv, p,
                                  uv_fp, uv_axes=uv_axes)
+    hair_h = None
+    if uv is not None and sb.scene_has_hair(scene):
+        hair_h = torch.clamp(-1.0 + 2.0 * uv[..., 1], -0.999, 0.999)
     return MaterialLanes(
         mat_type=scene.mat_type[m], kd=kd, ks=scene.mat_ks[m],
         kr=scene.mat_kr[m], kt=scene.mat_kt[m], eta=scene.mat_eta[m],
         k=scene.mat_k[m], rough_u=scene.mat_rough_u[m],
-        rough_v=scene.mat_rough_v[m], sigma=scene.mat_sigma[m])
+        rough_v=scene.mat_rough_v[m], sigma=scene.mat_sigma[m],
+        hair_h=hair_h,
+        sss_id=scene.mat_sss_id[m] if scene.has_sss else None)
+
+
+def _hair_lanes(m: MaterialLanes):
+    """MaterialLanes slots -> HairLanes (scene/build.py MAT_HAIR: kt =
+    sigma_a, sigma = beta_m, rough_u = beta_n, rough_v = alpha)."""
+    return hair.HairLanes(h=m.hair_h, eta=m.eta[..., 0], sigma_a=m.kt,
+                          beta_m=m.sigma, beta_n=m.rough_u,
+                          alpha=m.rough_v)
+
+
+def sss_interface(m: MaterialLanes):
+    """Lanes whose surface BSDF is the subsurface dielectric interface
+    (FresnelSpecular, kdsubsurface.cpp:70-74 / subsurface.cpp:74-76);
+    None when the scene has no BSSRDF tables.  Rough interfaces keep the
+    smooth lobe pair (scene/build.py)."""
+    if m.sss_id is None:
+        return None
+    return (((m.mat_type == sb.MAT_KDSUBSURFACE)
+             | (m.mat_type == sb.MAT_SUBSURFACE)) & (m.sss_id >= 0))
 
 
 def is_specular(m: MaterialLanes):
-    """Lanes whose material has only delta lobes (mirror, smooth glass)."""
+    """Lanes whose material has only delta lobes (mirror, smooth glass,
+    the subsurface FresnelSpecular interface)."""
     smooth_glass = (m.mat_type == sb.MAT_GLASS) & (m.rough_u < 1e-4)
-    return (m.mat_type == sb.MAT_MIRROR) | smooth_glass
+    out = (m.mat_type == sb.MAT_MIRROR) | smooth_glass
+    sssl = sss_interface(m)
+    return out if sssl is None else out | sssl
 
 
 # --------------------------------------------------------------------------
@@ -340,6 +381,11 @@ def _fresnel_blend_f(kd, ks, wo, wi, ax, ay):
 # Material dispatch: evaluate / sample over lanes
 # --------------------------------------------------------------------------
 
+# Families that take the plastic lobe pair where they are not the BSSRDF
+# interface.
+_PLASTIC_LIKE = (sb.MAT_KDSUBSURFACE, sb.MAT_SUBSURFACE)
+
+
 def _has(present, *types) -> bool:
     """Whether any of `types` can occur among the lanes: `present` is the
     set of material types of the scene's tables (None: any type)."""
@@ -366,10 +412,11 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
                  (sb.MAT_TRANSLUCENT, matte_f, lam_pdf)]
 
     if _has(present, sb.MAT_METAL, sb.MAT_PLASTIC, sb.MAT_UBER,
-            sb.MAT_SUBSTRATE, sb.MAT_DISNEY, sb.MAT_GLASS):
+            sb.MAT_SUBSTRATE, sb.MAT_DISNEY, sb.MAT_GLASS, *_PLASTIC_LIKE,
+            sb.MAT_HAIR):
         mf_pdf = _microfacet_pdf(wo, wi, ax, ay)
     if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_DISNEY,
-            sb.MAT_GLASS):
+            sb.MAT_GLASS, *_PLASTIC_LIKE):
         wh = cm.normalize(wo + wi)
 
     if _has(present, sb.MAT_DISNEY):
@@ -391,14 +438,18 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         disney_f = (1.0 - metallic) * burley + disney_spec
         fams.append((sb.MAT_DISNEY, disney_f, 0.5 * (lam_pdf + mf_pdf)))
 
-    if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER):
+    if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, *_PLASTIC_LIKE):
         F_diel = fresnel_dielectric(cm.dot(wi, wh), 1.0, 1.5)[..., None]
         plastic_spec = _microfacet_reflection_f(wo, wi, ax, ay,
                                                 F_diel * m.ks)
         plastic_f = m.kd * INV_PI + plastic_spec
         plastic_pdf = 0.5 * (lam_pdf + mf_pdf)
-        fams += [(sb.MAT_PLASTIC, plastic_f, plastic_pdf),
-                 (sb.MAT_UBER, plastic_f, plastic_pdf)]
+        # kdsubsurface/subsurface lanes outside the BSSRDF transport
+        # (no tables, as in the albedo curves) take the plastic pair.
+        fams += [(mt, plastic_f, plastic_pdf)
+                 for mt in (sb.MAT_PLASTIC, sb.MAT_UBER)]
+        fams += [(mt, plastic_f, plastic_pdf) for mt in _PLASTIC_LIKE
+                 if _has(present, mt)]
 
     if _has(present, sb.MAT_METAL):
         F_cond = fresnel_conductor(cos_theta(wi), m.eta, m.k)
@@ -410,6 +461,13 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         fams.append((sb.MAT_SUBSTRATE, substrate_f,
                      0.5 * (lam_pdf + mf_pdf)))
 
+    if _has(present, sb.MAT_HAIR):
+        # The fallback lobe pair (lanes without a width offset): an
+        # absorption-coloured diffuse base + a broad glossy lobe.
+        hair_f = m.kd * INV_PI + _microfacet_reflection_f(
+            wo, wi, ax, ay, m.ks.expand(m.kd.shape))
+        fams.append((sb.MAT_HAIR, hair_f, 0.5 * (lam_pdf + mf_pdf)))
+
     t = m.mat_type
     f = torch.zeros_like(m.kd)
     pdf = torch.zeros_like(ci)
@@ -419,6 +477,16 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         pdf = torch.where(sel, pp, pdf)
     f = torch.where(refl[..., None], f, 0.0)
     pdf = torch.where(refl, pdf, 0.0)
+
+    if m.hair_h is not None and _has(present, sb.MAT_HAIR):
+        # The Marschner model overrides the fallback pair on hair lanes;
+        # after the reflection mask, since hair scatters into the whole
+        # sphere (hair.cpp:418-480, 602-664).
+        with torch.profiler.record_function("hair.eval_f"):
+            f_h, pdf_h = hair.eval_f_pdf(_hair_lanes(m), wo, wi)
+            sel = t == sb.MAT_HAIR
+            f = torch.where(sel[..., None], f_h, f)
+            pdf = torch.where(sel, pdf_h, pdf)
 
     if _has(present, sb.MAT_GLASS):
         # Rough glass: microfacet reflection + transmission.
@@ -460,9 +528,14 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
     flip_z = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
     wi = torch.where(wo[..., 2:3] < 0, wi_cos * flip_z, wi_cos)
 
+    hair_model = m.hair_h is not None and _has(present, sb.MAT_HAIR)
     glossy = _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_SUBSTRATE,
-                  sb.MAT_DISNEY, sb.MAT_METAL, sb.MAT_GLASS)
-    has_glass = _has(present, sb.MAT_GLASS)
+                  sb.MAT_DISNEY, sb.MAT_METAL, sb.MAT_GLASS, *_PLASTIC_LIKE,
+                  sb.MAT_HAIR)
+    # The BSSRDF interface samples as smooth glass does (FresnelSpecular);
+    # its transmitted lanes feed the integrator's Sample_Sp block.
+    sssl = sss_interface(m) if _has(present, *_PLASTIC_LIKE) else None
+    has_glass = _has(present, sb.MAT_GLASS) or sssl is not None
     mirror = t == sb.MAT_MIRROR
     glass = rough_glass = choose_mf_refr = choose_refr = falses
     if glossy:
@@ -471,6 +544,13 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
         wi_mf = 2.0 * cm.dot(wo, wh)[..., None] * wh - wo
         two_lobe = ((t == sb.MAT_PLASTIC) | (t == sb.MAT_UBER)
                     | (t == sb.MAT_SUBSTRATE) | (t == sb.MAT_DISNEY))
+        # Hair samples the Marschner lobes when it has them, else the
+        # two-lobe proposal, as kdsubsurface/subsurface outside the BSSRDF.
+        for mt in (*_PLASTIC_LIKE, *(() if hair_model else (sb.MAT_HAIR,))):
+            if _has(present, mt):
+                two_lobe = two_lobe | (t == mt)
+        if sssl is not None:
+            two_lobe = two_lobe & ~sssl
         metal = t == sb.MAT_METAL
     if has_glass:
         # Candidate D: refraction (glass).
@@ -488,6 +568,8 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
         wi_refr = (-wo * eta_rel[..., None]
                    + (eta_rel * ci - ct)[..., None] * n_loc)
         glass = (t == sb.MAT_GLASS) & (m.rough_u < 1e-4)
+        if sssl is not None:
+            glass = glass | sssl
         rough_glass = (t == sb.MAT_GLASS) & (m.rough_u >= 1e-4)
 
         # Rough glass refraction through the sampled microfacet normal.
@@ -513,6 +595,10 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
     wi = torch.where(choose_refl[..., None], reflect_local(wo), wi)
     if has_glass:
         wi = torch.where(choose_refr[..., None], wi_refr, wi)
+    if hair_model:
+        with torch.profiler.record_function("hair.sample_wi"):
+            wi = torch.where((t == sb.MAT_HAIR)[..., None],
+                             hair.sample_wi(_hair_lanes(m), wo, u2, uc), wi)
 
     f_eval, pdf_eval = evaluate(m, wo, wi, present)
 

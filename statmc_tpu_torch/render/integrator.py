@@ -4,8 +4,9 @@ _scrub_ls, _carry_output, trace, trace_wavefront).
 
 One ``_bounce_step`` advances every lane by one lockstep bounce: the
 closest hit, emitted light, next-event estimation with both MIS halves,
-selective MIS, BSDF continuation, approximate-contribution Russian
-roulette and the bounce-0 G-buffer capture.  ``trace_wavefront`` drives
+selective MIS, BSDF continuation, the BSSRDF relocation of lanes that
+enter a subsurface material (render/sss.py), approximate-contribution
+Russian roulette and the bounce-0 G-buffer capture.  ``trace_wavefront`` drives
 it with path regeneration: the JAX package's ``lax.while_loop`` becomes a
 host loop over tensor ops with the same condition; ``trace`` drives it
 one sample per lane over a fixed number of steps (the per-sample driver
@@ -17,6 +18,7 @@ that rides the carry (render/lockstep_exact.py).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -49,6 +51,10 @@ class IntegratorConfig(NamedTuple):
     # The scene's material types (MAT_*): the BSDF skips the families no
     # lane can have (render/bsdf.py); None evaluates every family.
     mat_types: frozenset | None = None
+    # The scene has subsurface materials: run the in-bounce BSSRDF block
+    # (render/sss.py, statpath.cpp:892-926); off, no probe-chain call and
+    # no exit-vertex NEE runs.
+    enable_sss: bool = False
 
 
 class SampleOutput(NamedTuple):
@@ -132,8 +138,10 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     # Dead lanes carry t_max = 0: they cannot hit anything.
     tmax_live = torch.where(active, cm.INF, 0.0)
     # The exact replay needs pbrt's BSDF frame (ss = normalize(dpdu)) at
-    # every vertex, so cosine-sampled directions match draw for draw.
-    hit = intersect_scene(scene, o, d, tmax_live, bvh, want_tangent=exact)
+    # every vertex, so cosine-sampled directions match draw for draw; hair
+    # scenes need it for the Marschner frame (None: hair scenes only).
+    hit = intersect_scene(scene, o, d, tmax_live, bvh,
+                          want_tangent=True if exact else None)
     found = hit.found & active
 
     # --- emitted light at the vertex (bounce 0 or after specular) ---
@@ -157,7 +165,9 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
             uv_axes=(hit.uv_axes * cone_w[..., None, None]
                      if hit.uv_axes is not None else None))
     else:
-        m = B.gather_materials(scene, hit.mat_id)
+        # Hair lanes read their width offset from the ribbon's uv.
+        m = B.gather_materials(scene, hit.mat_id,
+                               hit.uv if sb.scene_has_hair(scene) else None)
     null_mat = m.mat_type == sb.MAT_NONE
     shading = shading & ~null_mat
 
@@ -165,6 +175,8 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
                           torch.tensor([0.0, 0.0, 1.0], device=dev))
     frame = B.ShadingFrame.from_normal(ns_safe)
     if hit.tangent is not None:
+        # pbrt's BSDF frame takes dpdu as its x axis (ss): the Marschner
+        # model's longitudinal angle is measured against the curve axis.
         t_proj = hit.tangent - cm.dot(hit.tangent, ns_safe)[..., None] \
             * ns_safe
         ok = torch.sum(t_proj * t_proj, -1, keepdim=True) > 1e-12
@@ -345,6 +357,15 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
 
     active = active & found & (bl < cfg.max_depth) & ~dead
 
+    sss_rays = None
+    if cfg.enable_sss and scene.sss is not None:
+        if exact:
+            raise ValueError("the exact lockstep replay does not model the "
+                             "BSSRDF's draw sites (subsurface materials)")
+        d_new, o_new, betas, ls, specular_new, active, sss_rays = _sss_block(
+            scene, bvh, dist, m, hit, frame, psmp, shading, dead, active,
+            keys, dstep, bl, NL, betas, ls, d_new, o_new, specular_new)
+
     # --- Russian roulette (statpath.cpp:930-953) --------------------
     rr_here = bl > (cfg.rr_start_bounce - 1)
     avg_idx = torch.clamp(bl + 1, max=NL - 1).long()
@@ -373,6 +394,8 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
 
     n_rays = (carry["n_rays"] + carry["active"].to(torch.float32)
               + 2.0 * nee.to(torch.float32))
+    if sss_rays is not None:
+        n_rays = n_rays + sss_rays
     path_len = carry["path_len"] + shading.to(torch.float32)
     bl_new = bl + torch.where(pass_through, 0, 1).to(torch.int32)
     new_carry = dict(
@@ -386,6 +409,90 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     if exact:
         new_carry["cursor"] = cur3.to(torch.int32)
     return new_carry
+
+
+def _firing_lanes(fire):
+    """(take, put) over the lanes where `fire` holds, or None when none
+    does: take gathers those lanes of a per-lane tensor, put scatters a
+    result back over all lanes with `fill` elsewhere.  The SSS block runs
+    on the gathered lanes (one host synchronisation a bounce step), where
+    the JAX package runs it over all lanes, the others masked; every op
+    of the block is per lane, so each lane's results are the same
+    (tests/test_torch_hair_sss.py holds both forms bit for bit)."""
+    lanes = torch.nonzero(fire)[:, 0]
+    if lanes.numel() == 0:
+        return None
+    P = fire.shape[0]
+
+    def take(x):
+        return x[lanes] if torch.is_tensor(x) and x.dim() > 0 else x
+
+    def put(x, fill):
+        out = torch.full((P,) + x.shape[1:], fill, dtype=x.dtype,
+                         device=x.device)
+        out[lanes] = x
+        return out
+
+    return take, put
+
+
+def _sss_block(scene, bvh, dist, m, hit, frame, psmp, shading, dead, active,
+               keys, dstep, bl, NL, betas, ls, d_new, o_new, specular_new):
+    """BSSRDF transport within the bounce (statpath.cpp:892-926): a lane
+    transmitted through a subsurface material's interface is relocated
+    to an exit point (Sample_Sp's probe chain), its betas[i <= bounce]
+    scaled by S/pdf; one EstimateDirect with the Sw lobe runs at the exit
+    point, and the path continues along a cosine-sampled Sw direction,
+    all before Russian roulette, as the reference orders it.  A failed
+    Sample_Sp ends the path.  Returns the updated (d_new, o_new, betas,
+    ls, specular_new, active) and the lanes' extra rays: the probe
+    chain, the exit shadow ray and the exit BSDF-MIS ray."""
+    from . import sss as SSS
+
+    sid = m.sss_id
+    sss_fire = shading & (sid >= 0) & psmp.transmission & ~dead & active
+    gathered = _firing_lanes(sss_fire)
+    if gathered is None:
+        return d_new, o_new, betas, ls, specular_new, active, None
+    take, put = gathered
+    k_keys, k_step, k_sid = take(keys), take(dstep), take(sid)
+    tid = torch.clamp(k_sid, min=0).long()
+    u_ax = crng.uniform_1d(k_keys, k_step, crng.SLOT_SSS_AXIS)
+    u_rad = crng.uniform_2d(k_keys, k_step, crng.SLOT_SSS_RADIUS)
+    spr = SSS.sample_sp(scene, bvh, scene.sss, k_sid, take(hit.p),
+                        B.ShadingFrame(*map(take, frame)), take(hit.mat_id),
+                        u_ax, u_rad, take(sss_fire))
+    k_ok = take(sss_fire) & spr.ok
+    # Direct lighting at the exit vertex (statpath.cpp:903-914).
+    eta_sss = scene.sss.eta[tid]
+    c_sss = scene.sss.c_sw[tid]
+    ld_sss = SSS.estimate_direct_sw(scene, bvh, dist, k_keys, k_step, spr.p,
+                                    spr.ns, eta_sss, c_sss, k_ok)
+    # Sw continuation (statpath.cpp:917-925): wo = +ns at pi, wi
+    # cosine-sampled, weight f |cos| / pdf = Sw pi.
+    u_sw = crng.uniform_2d(k_keys, k_step, crng.SLOT_SSS_SW)
+    wi_sw_l = B.cosine_sample_hemisphere(u_sw)
+    wi_sw = B.ShadingFrame.from_normal(spr.ns).to_world(wi_sw_l)
+    f_over_pdf = SSS.sw_eval(eta_sss, c_sss, wi_sw_l[:, 2]) * math.pi
+    o_sw = _offset_origin(spr.p, spr.ns, wi_sw)
+
+    sss_ok = put(k_ok, False)
+    # betas[i] *= S/pdf for i <= bounces (statpath.cpp:899).
+    bm_s = ((torch.arange(NL, device=bl.device)[None, :] <= bl[:, None])
+            & sss_ok[:, None])[..., None]
+    betas = betas * torch.where(bm_s, put(spr.s_over_pdf, 0.0)[:, None, :],
+                                1.0)
+    ls = ls + torch.where(sss_ok[..., None, None],
+                          betas * put(ld_sss, 0.0)[:, None, :], 0.0)
+    betas = betas * torch.where(bm_s, put(f_over_pdf, 1.0)[:, None, None],
+                                1.0)
+    d_new = torch.where(sss_ok[..., None], put(wi_sw, 0.0), d_new)
+    o_new = torch.where(sss_ok[..., None], put(o_sw, 0.0), o_new)
+    specular_new = torch.where(sss_ok, False, specular_new)
+    # A failed Sample_Sp breaks the path (statpath.cpp:898).
+    active = active & ~(sss_fire & ~put(spr.ok, True))
+    sss_rays = torch.where(sss_fire, float(SSS.PROBE_STEPS) + 2.0, 0.0)
+    return d_new, o_new, betas, ls, specular_new, active, sss_rays
 
 
 def _approx_albedo(m: B.MaterialLanes, cos_o):

@@ -1,12 +1,12 @@
 # Copied from statmc_tpu/scene/build.py (numpy side: build_scene,
-# SceneTables, _material_row); to_device returns torch tensors.
+# SceneTables, _material_row, the BSSRDF table stacking); to_device
+# returns torch tensors.
 """SceneDescription -> SoA scene tables (host numpy, then tensors).
 
 Copied from the JAX package with its behaviour unchanged for every
-feature the port renders.  Features the port does not render yet (hair,
-Fourier and subsurface materials, media) are refused by
-``driver.prepare`` before this module runs; the few table columns they
-would fill are dropped here.
+feature the port renders.  Features the port does not render yet
+(Fourier materials, media) are refused by ``driver.prepare`` before this
+module runs; the few table columns they would fill are dropped here.
 """
 from __future__ import annotations
 
@@ -136,10 +136,17 @@ class SceneTables(NamedTuple):
     # World bound
     world_center: Any
     world_radius: Any
+    # BSSRDF tables (render/sss.py SSSTables; None when the scene has no
+    # subsurface materials) and each material's table index or -1.
+    sss: Any = None
+    mat_sss_id: Any = None  # [M]
     # Host flags (statmc_tpu/scene/build.py SceneFlags): they gate the
-    # texture lookups and the image-light block.
+    # texture lookups, the image-light block, the hair model with its
+    # tangent and the BSSRDF transport.
     has_textures: bool = False  # any material with a Kd texture row
     has_image_lights: bool = False  # any goniometric/projection light
+    has_hair: bool = False  # any Material "hair" row
+    has_sss: bool = False  # any subsurface table (sss is not None)
 
     def to_device(self, device="cpu") -> "SceneTables":
         """numpy -> tensors on `device` (f32 floats, int32 ids, bool
@@ -153,7 +160,15 @@ class SceneTables(NamedTuple):
         return SceneTables(*[conv(x) for x in self])._replace(
             world_radius=float(self.world_radius),
             env_light_id=int(self.env_light_id),
-            textures=self.textures.to_device(device))
+            textures=self.textures.to_device(device),
+            sss=None if self.sss is None else self.sss.to_device(device))
+
+
+def scene_has_hair(scene) -> bool:
+    """Does any material row use the Marschner hair model
+    (render/hair.py)?  Gates the dpdu tangent and the hair lobes, so a
+    hairless scene runs neither."""
+    return bool(scene.has_hair)
 
 
 def _material_row(md: MaterialDesc | None, textures) -> dict:
@@ -180,88 +195,6 @@ def _material_row(md: MaterialDesc | None, textures) -> dict:
     if md is None:
         row["mat_type"] = MAT_NONE
         return row
-    mtype = _MAT_ENUM.get(md.mat_type, MAT_MATTE)
-    row["mat_type"] = mtype
-    p = md.params
-
-    def spectrum(name, default):
-        v = p.find_spectrum(name)
-        if v is not None:
-            return np.asarray(v, np.float32)
-        if p.type_of(name) == "texture":
-            tex = textures.get(p.find_one(name))
-            if tex is not None and tex.tex_class == "constant":
-                tv = tex.params.find_spectrum("value")
-                if tv is not None:
-                    return np.asarray(tv, np.float32)
-            if name == "Kd":
-                row["kd_tex_name"] = p.find_one(name)
-                return np.array([1.0, 1.0, 1.0], np.float32)
-            return np.array([0.5, 0.5, 0.5], np.float32)
-        return np.asarray(default, np.float32)
-
-    def scalar(name, default):
-        v = p.find_one(name)
-        if isinstance(v, (int, float)):
-            return float(v)
-        return float(default)
-
-    if mtype == MAT_MATTE:
-        row["kd"] = spectrum("Kd", [0.5, 0.5, 0.5])
-        row["sigma"] = scalar("sigma", 0.0)
-    elif mtype == MAT_PLASTIC:
-        row["kd"] = spectrum("Kd", [0.25, 0.25, 0.25])
-        row["ks"] = spectrum("Ks", [0.25, 0.25, 0.25])
-        rough = scalar("roughness", 0.1)
-        row["rough_u"] = row["rough_v"] = rough
-        if p.find_one("remaproughness", True):
-            row["rough_u"] = row["rough_v"] = _remap_roughness(rough)
-    elif mtype == MAT_METAL:
-        row["eta"] = spectrum("eta", _COPPER_ETA)
-        row["k"] = spectrum("k", _COPPER_K)
-        rough = scalar("roughness", 0.01)
-        ru = scalar("uroughness", rough)
-        rv = scalar("vroughness", rough)
-        if p.find_one("remaproughness", True):
-            ru, rv = _remap_roughness(ru), _remap_roughness(rv)
-        row["rough_u"], row["rough_v"] = ru, rv
-    elif mtype == MAT_GLASS:
-        row["kr"] = spectrum("Kr", [1.0, 1.0, 1.0])
-        row["kt"] = spectrum("Kt", [1.0, 1.0, 1.0])
-        ior = scalar("index", scalar("eta", 1.5))
-        row["eta"] = np.full(3, ior, np.float32)
-        ru = scalar("uroughness", scalar("roughness", 0.0))
-        rv = scalar("vroughness", scalar("roughness", 0.0))
-        if p.find_one("remaproughness", True) and (ru > 0 or rv > 0):
-            ru, rv = _remap_roughness(ru), _remap_roughness(rv)
-        row["rough_u"], row["rough_v"] = ru, rv
-    elif mtype == MAT_MIRROR:
-        row["kr"] = spectrum("Kr", [0.9, 0.9, 0.9])
-    elif mtype == MAT_SUBSTRATE:
-        row["kd"] = spectrum("Kd", [0.5, 0.5, 0.5])
-        row["ks"] = spectrum("Ks", [0.5, 0.5, 0.5])
-        ru = scalar("uroughness", 0.1)
-        rv = scalar("vroughness", 0.1)
-        if p.find_one("remaproughness", True):
-            ru, rv = _remap_roughness(ru), _remap_roughness(rv)
-        row["rough_u"], row["rough_v"] = ru, rv
-    elif mtype in (MAT_UBER, MAT_TRANSLUCENT, MAT_DISNEY):
-        row["kd"] = spectrum("Kd", [0.25, 0.25, 0.25])
-        row["ks"] = spectrum("Ks", [0.25, 0.25, 0.25])
-        row["kr"] = spectrum("Kr", [0.0, 0.0, 0.0])
-        row["kt"] = spectrum("Kt", [0.0, 0.0, 0.0])
-        rough = scalar("roughness", 0.1)
-        row["rough_u"] = row["rough_v"] = (
-            _remap_roughness(rough) if p.find_one("remaproughness", True) else rough
-        )
-        if mtype == MAT_DISNEY:
-            row["kd"] = spectrum("color", [0.5, 0.5, 0.5])
-            # Disney metallic rides the (otherwise unused) sigma slot.
-            row["sigma"] = scalar("metallic", 0.0)
-            rough = scalar("roughness", 0.5)
-            # Disney roughness is perceptual: alpha = roughness^2.
-            row["rough_u"] = row["rough_v"] = max(rough * rough, 1e-3)
-    return row
     mtype = _MAT_ENUM.get(md.mat_type, MAT_MATTE)
     row["mat_type"] = mtype
     p = md.params
@@ -868,6 +801,40 @@ def build_scene(desc: SceneDescription,
         log.warning(msg)
         print(f"WARNING: {msg}", file=sys.stderr)
 
+    # BSSRDF tables (render/sss.py): one beam-diffusion profile per
+    # subsurface material.  kdsubsurface rows first invert Kd + mfp into
+    # (sigma_a, sigma_s) via SubsurfaceFromDiffuse
+    # (materials/kdsubsurface.cpp:104-107); subsurface rows carry the
+    # scaled coefficients directly (materials/subsurface.cpp:104-108).
+    sss_tables = None
+    mat_sss_id = np.full((len(mat_rows),), -1, np.int32)
+    if any(r.get("sss") for r in mat_rows):
+        from ..render.bssrdf import (compute_beam_diffusion_bssrdf,
+                                     subsurface_from_diffuse)
+        from ..render.sss import build_sss_tables
+
+        prof_cache: dict = {}
+        entries = []
+        for mi_, r in enumerate(mat_rows):
+            e = r.get("sss")
+            if not e:
+                continue
+            gk = (round(float(e["g"]), 6), round(float(e["eta"]), 6))
+            if e["kind"] == "kd":
+                if gk not in prof_cache:
+                    prof_cache[gk] = compute_beam_diffusion_bssrdf(
+                        g=gk[0], eta=gk[1])
+                sa, ss2 = subsurface_from_diffuse(
+                    prof_cache[gk], e["kd"], e["mfp"])
+                entries.append(dict(sigma_a=sa, sigma_s=ss2,
+                                    g=e["g"], eta=e["eta"]))
+            else:
+                entries.append(dict(sigma_a=e["sigma_a"],
+                                    sigma_s=e["sigma_s"],
+                                    g=e["g"], eta=e["eta"]))
+            mat_sss_id[mi_] = len(entries) - 1
+        sss_tables = build_sss_tables(entries)
+
     # World bound.
     pts = [p0.reshape(-1, 3)] if T else []
     if sph_c:
@@ -936,9 +903,13 @@ def build_scene(desc: SceneDescription,
         env_light_id=int(env_lid),
         world_center=wcenter.astype(np.float32),
         world_radius=np.float32(wradius),
+        sss=sss_tables,
+        mat_sss_id=mat_sss_id,
         has_textures=bool(np.any(mat_kd_tex >= 0)),
         has_image_lights=any(
             l["kind"] in (LIGHT_GONIO, LIGHT_PROJ) for l in lights),
+        has_hair=any(r["mat_type"] == MAT_HAIR for r in mat_rows),
+        has_sss=sss_tables is not None,
     )
 
 

@@ -1,6 +1,7 @@
 # Copied from statmc_tpu/testscenes.py (numpy host code; imports rewritten,
 # behaviour unchanged); the material overrides of staircase_proxy and
-# terrain_proxy and the textured scenes at the end are the port's own.
+# terrain_proxy and the textured and hair + subsurface scenes at the end
+# are the port's own.
 """Procedural test scenes.
 
 The reference's scene assets (PLY meshes, textures) are downloaded
@@ -52,8 +53,9 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
     ~(12 * (n_steps + clutter + 6)) triangles + a few spheres; glossy
     substrate steps, matte walls, metal rail, glass sphere, one area
     light -- the material mix of the paper's staircase scene.  The
-    *_mat arguments replace the room shell's, the steps' and (cycling)
-    the clutter boxes' Material lines; the geometry stays the same.
+    *_mat arguments replace the room shell's, the steps' and (cycling,
+    None entries keeping the default) the clutter boxes' Material lines;
+    the geometry stays the same.
     """
     rng = np.random.default_rng(seed)
     out = []
@@ -100,10 +102,9 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
         c = rng.random(3) * 0.7 + 0.1
         p = rng.random(3) * np.array([12, 3, 12]) - np.array([6, 0, 6])
         s = rng.random(3) * 0.8 + 0.2
-        out.append(
-            clutter_mats[i % len(clutter_mats)] if clutter_mats else
-            f'Material "matte" "rgb Kd" [{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}]\n'
-        )
+        alt = clutter_mats[i % len(clutter_mats)] if clutter_mats else None
+        out.append(alt or f'Material "matte" "rgb Kd" '
+                   f'[{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}]\n')
         v, f = _box_tris(tuple(p), tuple(p + s))
         out.append(_mesh_stmt(v, f))
 
@@ -128,7 +129,8 @@ def staircase_proxy(n_steps: int = 24, clutter: int = 60,
 
 def terrain_proxy(n: int = 256, seed: int = 11, floor_mat: str | None = None,
                   sphere_mats: list | None = None,
-                  clutter_mat: str | None = None) -> str:
+                  clutter_mat: str | None = None,
+                  clutter_mats: list | None = None) -> str:
     """A >=100k-triangle ENCLOSED scene for large-scene benchmarking.
 
     One heightfield floor of 2*(n-1)^2 triangles (n=256 -> 130050)
@@ -142,7 +144,8 @@ def terrain_proxy(n: int = 256, seed: int = 11, floor_mat: str | None = None,
     scenes' PLY assets are not mounted, so scale comes from procedural
     geometry.  floor_mat, sphere_mats (indexed like the default four,
     None entries keeping the default) and clutter_mat replace Material
-    lines; the geometry stays the same.
+    lines; clutter_mats, cycling with None entries keeping the default,
+    replaces the boxes' lines one by one; the geometry stays the same.
     """
     rng = np.random.default_rng(seed)
     out = []
@@ -201,11 +204,12 @@ def terrain_proxy(n: int = 256, seed: int = 11, floor_mat: str | None = None,
         out.append("AttributeEnd\n")
 
     # Clutter boxes.
-    for _ in range(120):
+    for i in range(120):
         c = rng.random(3) * 0.7 + 0.1
         p = rng.random(3) * np.array([14, 1.2, 14]) - np.array([7, -0.3, 7])
         s = rng.random(3) * 0.5 + 0.1
-        out.append(clutter_mat or (
+        alt = clutter_mats[i % len(clutter_mats)] if clutter_mats else None
+        out.append(alt or clutter_mat or (
             f'Material "matte" "rgb Kd" [{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}]\n'
         ))
         v, f = _box_tris(tuple(p), tuple(p + s))
@@ -410,3 +414,102 @@ def textured_terrain_text(directory: str, width=1280, height=720, spp=4,
     head, tail = text.split("WorldBegin\n")
     return (head + "WorldBegin\n" + _TEXTURES + body
             + _image_lights(True, "projection") + "WorldEnd\n")
+
+
+# ---------------------------------------------------------------------------
+# Hair + subsurface scenes: a tuft of Bezier curves under two hair
+# material routes (melanin concentration, and an rgb colour through
+# SigmaAFromReflectance) and kdsubsurface / subsurface objects, added to
+# the staircase and terrain proxies.
+
+_KDSSS = ('Material "kdsubsurface" "rgb Kd" [{:.2f} {:.2f} {:.2f}] '
+          '"float mfp" [{:.3f}]\n')
+_SSS = 'Material "subsurface" "float scale" [{:.0f}]\n'
+
+
+def _hair_mats(k: int) -> str:
+    """Hair material k: even k by eumelanin (0.3-1.3), odd k by an rgb
+    colour; beta_m, beta_n and alpha vary a little with k."""
+    bm, bn = 0.2 + 0.05 * (k % 4), 0.3 + 0.05 * (k % 3)
+    tail = (f'"float beta_m" [{bm:.2f}] "float beta_n" [{bn:.2f}] '
+            f'"float alpha" [{1.0 + k % 3:.1f}]\n')
+    if k % 2 == 0:
+        return (f'Material "hair" "float eumelanin" '
+                f'[{0.3 + 0.25 * (k // 2 % 5):.2f}] ' + tail)
+    cols = ((0.75, 0.55, 0.35), (0.55, 0.3, 0.15), (0.85, 0.8, 0.7))
+    c = cols[k // 2 % 3]
+    return (f'Material "hair" "rgb color" [{c[0]:.2f} {c[1]:.2f} '
+            f'{c[2]:.2f}] ' + tail)
+
+
+def hair_tuft(curves: int, center, radius: float, top: float, bottom: float,
+              seed: int = 0, groups: int = 8) -> str:
+    """`curves` single-segment cubic Bezier curves hanging from a disc of
+    `radius` around `center` (x, z) at height `top` down to about
+    `bottom`, width 0.01-0.03, in `groups` runs of one hair material
+    each (_hair_mats), made from `seed`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    per = -(-curves // groups)
+    for i in range(curves):
+        if i % per == 0:
+            out.append(_hair_mats(i // per))
+        a, r = rng.random() * 2 * np.pi, radius * np.sqrt(rng.random())
+        x0, z0 = center[0] + r * np.cos(a), center[1] + r * np.sin(a)
+        drop = (top - bottom) * (0.8 + 0.2 * rng.random())
+        sway = rng.normal(0.0, 0.25, (3, 2)).cumsum(0)
+        pts = [(x0, top, z0)] + [
+            (x0 + sway[k, 0], top - drop * (k + 1) / 3, z0 + sway[k, 1])
+            for k in range(3)]
+        w = 0.01 + 0.02 * rng.random()
+        p = " ".join(f"{c:.4f}" for pt in pts for c in pt)
+        out.append(f'Shape "curve" "point P" [ {p} ] "float width" '
+                   f'[{w:.4f}]\n')
+    return "".join(out)
+
+
+def _sss_spheres(spheres) -> str:
+    out = []
+    for mat, (x, y, z, r) in spheres:
+        out.append(f"AttributeBegin\n{mat}Translate {x} {y} {z}\n"
+                   f'Shape "sphere" "float radius" [{r}]\nAttributeEnd\n')
+    return "".join(out)
+
+
+def hair_sss_scene_text(width=1280, height=720, spp=4, iterations=2,
+                        maxdepth=8, curves: int = 768, denoise=True,
+                        filterradius=20, seed: int = 0) -> str:
+    """The staircase proxy with a hair tuft of `curves` curves (16
+    triangles each; 768 keep the scene within the fused intersector's
+    16,384 triangles), three kdsubsurface and two subsurface spheres,
+    and a quarter of the clutter boxes kdsubsurface."""
+    body = staircase_proxy(clutter_mats=[
+        _KDSSS.format(0.8, 0.55, 0.45, 0.05), None, None, None])
+    body += _sss_spheres([
+        (_KDSSS.format(0.85, 0.6, 0.5, 0.08), (1.6, 1.0, -1.2, 1.0)),
+        (_KDSSS.format(0.5, 0.7, 0.85, 0.05), (4.0, 0.7, -2.8, 0.9)),
+        (_KDSSS.format(0.9, 0.85, 0.6, 0.12), (0.2, 0.6, -4.6, 0.75)),
+        (_SSS.format(20), (3.4, 0.6, 0.6, 0.75)),
+        (_SSS.format(40), (-1.0, 3.6, -0.8, 0.7)),
+    ])
+    body += hair_tuft(curves, (2.6, -3.4), 0.7, 4.4, 1.4, seed=seed)
+    return scene_text(width=width, height=height, spp=spp,
+                      iterations=iterations, maxdepth=maxdepth,
+                      denoise=denoise, filterradius=filterradius, body=body)
+
+
+def hair_sss_terrain_text(width=1280, height=720, spp=4, iterations=1,
+                          maxdepth=8, n: int = 256, curves: int = 2048,
+                          denoise=True, seed: int = 0) -> str:
+    """The terrain proxy with a hair tuft of `curves` curves inside the
+    hall, in the camera's view, 40 of the 120 clutter boxes kdsubsurface
+    and 16 of the 48 spheres subsurface."""
+    body = terrain_proxy(
+        n=n, sphere_mats=[_SSS.format(30), None, None],
+        clutter_mats=[None, _KDSSS.format(0.8, 0.6, 0.5, 0.04), None])
+    body += hair_tuft(curves, (3.5, -2.0), 0.8, 4.5, 2.0, seed=seed)
+    text = terrain_scene_text(width=width, height=height, spp=spp,
+                              iterations=iterations, maxdepth=maxdepth, n=n,
+                              denoise=denoise)
+    head, _ = text.split("WorldBegin\n")
+    return head + "WorldBegin\n" + body + "WorldEnd\n"

@@ -97,8 +97,9 @@ def test_package_imports_without_jax():
 
 @pytest.mark.parametrize("edit,item", [
     (("Camera \"perspective\"", "Camera \"realistic\""), "Rest of slice 4"),
-    (("Material \"glass\" \"float index\" [1.5]",
-      "Material \"hair\""), "Rest of slice 4"),
+    (("Integrator \"statpath\"",
+      "MakeNamedMedium \"fog\" \"string type\" \"homogeneous\"\n"
+      "Integrator \"volpath\""), "Rest of slice 4"),
     (("Integrator \"statpath\"", "Integrator \"bdpt\""), "Rest of slice 4"),
     (("Material \"glass\" \"float index\" [1.5]",
       "Material \"fourier\""), "Rest of slice 4"),
@@ -110,6 +111,34 @@ def test_unported_features_raise(edit, item, tmp_path):
     path = _write(text.replace(edit[0], edit[1]), tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         TD.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("mat", ['Material "hair" "float eumelanin" [0.8]',
+                                 'Material "kdsubsurface" "float mfp" [0.1]',
+                                 'Material "subsurface" "float scale" [20]'])
+def test_hair_and_subsurface_scenes_load(mat, tmp_path):
+    """Hair and subsurface materials are no longer gated: such a scene
+    loads on the CPU (hair on a curve shape) and renders finite, through
+    load() and through the command line."""
+    from statmc_tpu_torch import __main__ as TM
+    from statmc_tpu_torch.io.pfm import read_pfm
+
+    text = scene_text(width=8, height=8, spp=1, iterations=1, maxdepth=2,
+                      denoise=False)
+    shape = ('Shape "curve" "point P" [0 1 -4  0.5 2 -4  1 1 -4  1.5 2 -4] '
+             '"float width" [0.05]\n' if "hair" in mat
+             else 'Shape "sphere" "float radius" [0.5]\n')
+    text = text.replace("WorldEnd", f"{mat}\n{shape}WorldEnd")
+    path = _write(text, tmp_path)
+    r = TD.load(path, device="cpu")
+    assert r.s.scene.has_hair == ("hair" in mat)
+    assert r.s.icfg.enable_sss == ("hair" not in mat)
+    r.render(verbose=False)
+    assert np.isfinite(r.film_mean.numpy()).all()
+    out = tmp_path / "out"
+    TM.main([path, "--device", "cpu", "--writeimages", "--outdir", str(out)])
+    pfms = list(out.glob("*-film.pfm"))
+    assert pfms and np.isfinite(read_pfm(str(pfms[0]))).all()
 
 
 def test_camera_and_scene_tables_match(tiny):
