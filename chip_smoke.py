@@ -88,6 +88,21 @@ and the final line is not printed:
    on all their rays, the step's other calls on 32,768 rays each); B3's votes on every block and B4's (t, id) on every
    block with a live ray on the terrain's SSS calls, on 64 blocks of the
    others;
+8d. volpath at full width: the staircase under volpath with a
+   homogeneous haze the camera starts in, a 128^3 grid smoke (made from
+   SEED) behind a null-material box, three Fourier spheres and a quarter
+   of the boxes Fourier (.bsdf tables written by the port's write_bsdf
+   from SEED), 4 spp, 1 iteration, maxdepth 8, denoised: B1 and B2 must
+   launch (counts set to 0 just before, read just after); every buffer
+   finite, film mean > 0; Fourier on >= 5% of first hits; the share of
+   camera paths with a medium vertex and in the smoke; rays/s beside the
+   untextured staircase's, peak device memory; per bounce step the
+   lanes, intersect calls, walk segments against K and the lanes that
+   entered delta and ratio tracking, and the loops' iterations against
+   their caps (render/volume.py's track_stats);
+8e. volpath walk calls: B1 against its plain version bit for bit on
+   every intersect call of that render's first bounce step, the walks'
+   on all their rays, the camera path's on 32,768 seeded rays;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
    iteration's denoise pass profiled once more on its own; then one more
@@ -104,6 +119,10 @@ and the final line is not printed:
    ``hair.eval_f``, ``hair.sample_wi``, ``sss.sample_sp``, ``sss.probe``
    and ``sss.direct`` ranges, B1's ms (B2's from its denoise pass alone);
    and the hair + SSS terrain's iteration (device only) for B2, B3, B4;
+   then the volpath iteration (device only): kernels, device ms, busy
+   share, B1's and B2's ms; and its first sample of 4 under the full
+   profiler (the whole iteration's host trace is too large to read in
+   time): device ms inside the ``volume.*`` and ``fourier.*`` ranges;
 10. kernel B3 on those rays: its time over all calls; votes against the
     two-stage plain cull, and the reject tests, per-ray tests and
     surviving boxes per block that its design spends there, on every
@@ -126,6 +145,16 @@ and the final line is not printed:
     and on the CPU: equal ray totals, every buffer within rtol 1e-4 on
     >= 97% of its pixels (HAIR_SMALL_SHARE), B1 and B2 launched on the
     card;
+12d. volpath two-level: the terrain (n = 96, 19,566 triangles) under
+    volpath with the haze and a 16^3 smoke behind a null box, 64x36, 1
+    spp: B3 and B4 must launch; B3's votes on every block and B4's (t,
+    id) on every block with a live ray against their plain versions,
+    bit for bit, on every intersect call of one bounce step (the walks'
+    included); its iteration profiled (device only);
+12e. volpath small: the volpath staircase at 32x24 (a 16^3 smoke, 2 spp,
+    2 iterations) on the card and on the CPU: ray totals within 0.1%,
+    every buffer within rtol 1e-4 on >= 98% of its pixels, B1 and B2
+    launched on the card;
 12a. the command line: ``python -m statmc_tpu_torch`` in a subprocess on
     the 1280x720 staircase with configs/render-for-ours.pbrt's block (cut
     to maxdepth 8 and 4 spp), 2 iterations, every buffer written; then
@@ -192,7 +221,8 @@ TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
 # two-level intersect's stages, the texture lookups, the env-map branches,
 # the hair model and the BSSRDF transport (these nest: sss.probe inside
 # sss.sample_sp, twolevel.* inside both).
-RANGES = ("twolevel.", "textures.", "lights.", "hair.", "sss.")
+RANGES = ("twolevel.", "textures.", "lights.", "hair.", "sss.", "volume.",
+          "fourier.")
 SEED = 0  # the textured phases' images are made from it
 # The textured small phase's share of pixels within rtol 1e-4 (card
 # against CPU), with ray totals equal.
@@ -2117,6 +2147,368 @@ def hair_sss_small():
                                curves=HAIR_SMALL_CURVES, seed=SEED)
 
 
+# ---------------------------------------------------------------------------
+# volpath with participating media and the Fourier BSDF
+
+VOLPATH_GRID = 128  # the full-width smoke's density grid per side
+FOURIER_SHARE = 0.05  # first-hit share that the Fourier materials reach
+VOLPATH_TERRAIN_N = 96  # the two-level volpath terrain's heightfield side
+
+
+def _volpath_text(tmp, width=WIDTH, height=HEIGHT, **kw):
+    """The full-width volpath staircase (a haze, a 128^3 smoke behind a
+    null box, Fourier spheres and boxes) at the untextured staircase's
+    settings, one iteration, denoised; its .bsdf tables written into
+    tmp."""
+    from statmc_tpu_torch.testscenes import volpath_scene_text
+
+    kw = {**dict(spp=SPP, iterations=1, maxdepth=MAXDEPTH,
+                 grid=VOLPATH_GRID, filterradius=RADIUS, seed=SEED), **kw}
+    return volpath_scene_text(tmp, width=width, height=height, **kw)
+
+
+def _fourier_first_hits(r):
+    """The share of the camera rays' first hits (pixel centres) on a
+    Fourier material."""
+    import torch
+
+    from statmc_tpu_torch.render import camera as CAM
+    from statmc_tpu_torch.render.intersect import intersect_scene
+    from statmc_tpu_torch.scene import build as sb
+
+    s = r.s
+    P = s.width * s.height
+    ids = torch.arange(P, device=s.device)
+    pxy = torch.stack([(ids % s.width).float() + 0.5,
+                       (ids // s.width).float() + 0.5], -1)
+    o, d = CAM.generate_rays(s.cam, pxy)
+    hit = intersect_scene(s.scene, o, d,
+                          torch.full((P,), 1e30, device=s.device), s.bvh)
+    mt = torch.where(hit.found, s.scene.mat_type[hit.mat_id.long()], -1)
+    return float((mt == sb.MAT_FOURIER).float().mean())
+
+
+def _volpath_stats(stats, K):
+    """A text and {paths, scattered, in_grid, tracking} of the records
+    render/volume.py's track_stats gathered over a render: per bounce
+    step (summed over its samples) the lanes it ran on, its intersect
+    calls (the camera path's and every walk segment's), the walks'
+    segments against K, the lanes that entered delta and ratio tracking;
+    and the tracking loops' iterations (mean, max) against their caps."""
+    from statmc_tpu_torch.render import volume as TV
+
+    steps, paths = {}, [0, 0, 0]
+    its = {"delta": [], "ratio": []}
+    cur = None
+    for rec in stats:
+        kind = rec[0]
+        if kind == "step":
+            cur = steps.setdefault(rec[2], dict(lanes=0, isect=0, walks=0,
+                                                segs=0, max_segs=0,
+                                                delta=0, ratio=0))
+            cur["lanes"] += rec[1]
+            cur["isect"] += 1
+        elif kind == "paths":
+            paths = [a + b for a, b in zip(paths, rec[1:])]
+        elif kind == "walk":
+            cur["isect"] += rec[2]
+            cur["walks"] += 1
+            cur["segs"] += rec[2]
+            cur["max_segs"] = max(cur["max_segs"], rec[2])
+        else:
+            cur[kind] += rec[1]
+            its[kind].append(rec[2])
+    text = "; ".join(
+        f"step {k}: {v['lanes']} lanes, {v['isect']} intersect calls, "
+        f"{v['walks']} walks of {v['segs'] / max(v['walks'], 1):.2f} "
+        f"segments (max {v['max_segs']} of K = {K}), delta tracking "
+        f"{v['delta']} lanes, ratio {v['ratio']}"
+        for k, v in sorted(steps.items()))
+    caps = {"delta": TV.GRID_SAMPLE_STEPS, "ratio": TV.GRID_TR_STEPS}
+    loops = "; ".join(
+        f"{k} tracking: {len(v)} loops, iterations mean "
+        f"{sum(v) / max(len(v), 1):.2f} max {max(v, default=0)} of "
+        f"{caps[k]}" for k, v in its.items())
+    return text, loops, dict(paths=paths[0], scattered=paths[1],
+                             in_grid=paths[2], loops={k: len(v) for k, v
+                                                      in its.items()})
+
+
+def phase_volpath(card, plain_s, plain_rays):
+    """load(the full-width volpath staircase).render() on the card: B1
+    and B2 launched (every count set to 0 just before the render and
+    read just after), every buffer finite, film and film-f with mean >
+    0, Fourier materials on >= FOURIER_SHARE of the first hits, some
+    camera paths with a medium vertex and some in the smoke; rays/s
+    beside the untextured staircase's (plain_s, plain_rays: its last
+    iteration in this run), peak device memory and the tracking records
+    (_volpath_stats).  Returns (renderer, launches, log, rays/s)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import fused as F
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import volume as TV
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = _write_scene(tmp, "volpath.pbrt", _volpath_text(tmp))
+        text_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    s = r.s
+    if not (isinstance(s.bvh, F.FusedTris) and s.icfg.volumetric
+            and s.icfg.has_grid_media and s.scene.fourier is not None
+            and s.icfg.null_extra == 8):
+        raise AssertionError(f"volpath: {type(s.bvh).__name__}, volumetric "
+                             f"{s.icfg.volumetric}, grid "
+                             f"{s.icfg.has_grid_media}, null_extra "
+                             f"{s.icfg.null_extra}")
+    r.progress = False
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    stats = []
+    with _patched((TV, "track_stats", stats)):
+        _zero_counts()
+        logs = r.render(verbose=False)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    bufs = r.buffers()
+    bad = [k for k, v in bufs.items() if not np.isfinite(v).all()]
+    if bad or min(bufs["film"].mean(), bufs["film-f"].mean()) <= 0:
+        raise AssertionError(f"volpath: buffers not finite {bad}, or film "
+                             "mean not > 0")
+    if min(launches["B1"], launches["B2"]) <= 0:
+        raise AssertionError(f"volpath launch counts {launches}")
+    fourier = _fourier_first_hits(r)
+    text, loops, summary = _volpath_stats(stats, 1 + s.icfg.null_extra)
+    scat = summary["scattered"] / max(summary["paths"], 1)
+    smoke = summary["in_grid"] / max(summary["paths"], 1)
+    if fourier < FOURIER_SHARE or scat < 0.05 or smoke <= 0 \
+            or min(summary["loops"].values()) <= 0:
+        raise AssertionError(f"volpath: Fourier first hits {fourier:.4f}, "
+                             f"paths with a medium vertex {scat:.4f}, in "
+                             f"the smoke {smoke:.4f}, loops "
+                             f"{summary['loops']}")
+    log = logs[-1]
+    rate = log["rays_total"] / log["render_s"]
+    plain = plain_rays / plain_s
+    print(f"volpath: {s.bvh.n_tris} tris, {WIDTH}x{HEIGHT}, {SPP} spp, "
+          f"maxdepth {MAXDEPTH}, {VOLPATH_GRID}^3 smoke; scene text "
+          f"{text_s:.1f} s, setup {setup_s:.1f} s; {log['rays_total']:.0f} "
+          f"rays in {log['render_s']:.3f} s = {rate:.1f} rays/s (untextured "
+          f"staircase in this run: {plain:.1f} rays/s, ratio "
+          f"{rate / plain:.3f}), denoise {log['denoise_s'] * 1e3:.1f} ms, "
+          f"peak memory {peak / 2**30:.2f} GiB; camera paths with a medium "
+          f"vertex {scat:.4f}, that entered the smoke {smoke:.4f} (of "
+          f"{summary['paths']}); Fourier first hits {fourier:.4f}; film "
+          f"mean {bufs['film'].mean():.5f}; launches {launches} [{card}]",
+          flush=True)
+    print(f"volpath steps: {text} [{card}]", flush=True)
+    print(f"volpath loops: {loops} [{card}]", flush=True)
+    return r, launches, log, rate
+
+
+def _one_sample(r):
+    """One sample per pixel of r's iteration 1 (the first quarter of it):
+    the per-sample chunk function on its states, film and counters."""
+    r.film_sum.zero_()
+    r.film_w.zero_()
+    return r.chunk_fn(r.states, r.film_sum, r.film_w, r.ray_total, r.stats,
+                      r.base_key, 0, r.avg_ls, r.win_b, r.win_l, False, 1)
+
+
+def phase_volpath_profile(card, r, render_s, plain):
+    """The volpath iteration once more under torch.profiler, device only
+    (its ~2 million kernels' host trace is too slow to read): kernels,
+    device ms by kernel (B1's and B2's with their launches) and busy
+    share of the unprofiled render_s, beside the untextured staircase's
+    iteration (plain: {kernels, device_ms, busy}); then the first of its
+    SPP samples under the full profiler, for the device ms inside the
+    volume.* and fourier.* ranges, as shares of that sample's device
+    time.  Returns {kernel: device ms of the whole iteration}."""
+    import torch
+
+    _, whole, _, _, whole_read = _profile(lambda: r.run_iteration(1),
+                                          host=False)
+    _, groups, launches, stages, read_s = _profile(lambda: _one_sample(r))
+    w_total = sum(ms for ms, _ in whole.values())
+    w_kernels = sum(n for _, n in whole.values())
+    total = sum(ms for ms, _ in groups.values())
+    kernels = sum(n for _, n in groups.values())
+    names = sorted(k for k in stages if k.startswith(("volume.",
+                                                      "fourier.")))
+    print(f"volpath profile: the iteration ({SPP} spp, {WIDTH}x{HEIGHT}, "
+          f"device only, trace read in {whole_read:.1f} s): device time "
+          f"{w_total:.1f} ms in {w_kernels} kernels, busy "
+          f"{w_total / 1e3 / render_s:.3f} of the unprofiled "
+          f"{render_s:.3f} s (untextured staircase iteration: "
+          f"{plain['device_ms']:.1f} ms in {plain['kernels']} kernels, busy "
+          f"{plain['busy']:.3f}); " + ", ".join(
+              f"{g} {ms:.1f} ms ({n})" for g, (ms, n) in whole.items() if n)
+          + f"; its first sample (host and device, trace read in "
+          f"{read_s:.1f} s): {total:.1f} ms in {kernels} kernels ({launches} "
+          f"launched through the runtime); "
+          + ", ".join(f"{k} {stages[k][0]} calls, {stages[k][2]:.1f} ms "
+                      f"device ({stages[k][2] / max(total, 1e-9):.3f} of the "
+                      f"sample's) / {stages[k][1]:.1f} ms host"
+                      for k in names) + f" [{card}]", flush=True)
+    if whole["B1"][1] <= 0 or whole["B2"][1] <= 0 or not any(
+            stages[k][2] > 0 for k in names if k.startswith("volume.")) \
+            or not any(stages[k][2] > 0 for k in names
+                       if k.startswith("fourier.")):
+        raise AssertionError("volpath profile: no B1, no B2, or a volume.* "
+                             "or fourier.* range without device time")
+    torch.cuda.synchronize()
+    return {"B1": whole["B1"][0], "B2": whole["B2"][0]}
+
+
+def _record_volpath_step(r, module, name):
+    """The inputs of every call of `module`.`name` (intersect_fused or
+    intersect_twolevel) in the first bounce step of r's iteration 1, and
+    whether a transmittance walk made it; the iteration is stopped after
+    that step."""
+    from statmc_tpu_torch.render import volume as TV
+
+    calls, in_walk = [], [False]
+    call, step, walk = getattr(module, name), TV._volpath_step, \
+        TV.transmittance_walk
+
+    def record(acc, o, d, t_max):
+        calls.append((acc, o.clone(), d.clone(), t_max.clone(), in_walk[0]))
+        return call(acc, o, d, t_max)
+
+    def walking(*a, **k):
+        in_walk[0] = True
+        try:
+            return walk(*a, **k)
+        finally:
+            in_walk[0] = False
+
+    def first_step(*a, **k):
+        step(*a, **k)
+        raise _Stop()
+
+    with _patched((module, name, record), (TV, "_volpath_step", first_step),
+                  (TV, "transmittance_walk", walking)):
+        try:
+            r.run_iteration(1)
+        except _Stop:
+            pass
+    return calls
+
+
+def phase_volpath_walk_calls(card, r):
+    """B1 against its plain version, bit for bit, on the inputs of every
+    intersect call of the volpath render's first bounce step: the walks'
+    calls (shadow, phase-MIS and BSDF-MIS rays, each segment across a
+    null boundary) on all their rays, the camera path's call on
+    PROBE_PLAIN_RAYS seeded rays.  Returns the calls checked."""
+    from statmc_tpu_torch.render import intersect as TX
+
+    calls = _record_volpath_step(r, TX, "intersect_fused")
+    walks = [c[:4] for c in calls if c[4]]
+    rest = [c[:4] for c in calls if not c[4]]
+    if len(walks) < 4 or not rest:
+        raise AssertionError(f"volpath walk calls: {len(walks)} walk calls, "
+                             f"{len(rest)} others")
+    n, lo, hi, _ = _b1_on_calls(walks)
+    _b1_on_calls(rest, max_plain=PROBE_PLAIN_RAYS)
+    print(f"volpath walk calls: B1 bit-identical to plain on the {len(calls)}"
+          f" intersect calls of one bounce step: the walks' {n} calls on all "
+          f"their {walks[0][1].shape[0]} rays ({lo}-{hi} live), the camera "
+          f"path's {len(rest)} call(s) on {PROBE_PLAIN_RAYS} seeded rays "
+          f"[{card}]", flush=True)
+    return len(calls)
+
+
+def volpath_small(tmp):
+    """The volpath staircase at 32x24 (a 16^3 smoke, 2 spp, 2 iterations,
+    maxdepth 4, as the other small scenes), its tables written into tmp
+    (fused path, B1 and B2)."""
+    return _volpath_text(tmp, width=SMALL_W, height=SMALL_H, spp=2,
+                         iterations=2, maxdepth=4, grid=16, filterradius=2)
+
+
+def phase_volpath_twolevel(card):
+    """The volpath terrain (haze and a null-bounded 16^3 smoke) at n = 96
+    (19,566 triangles with the smoke box, two-level) and 64x36, 1 spp (a
+    bounce step's ~50,000 launches do not shrink with the image), on the
+    card: B3 and
+    B4 launched in its render (counts set to 0 just before, read just
+    after), the film finite with mean > 0; then B3's votes on every
+    block and B4's (t, id) on every block with a live ray, against their
+    plain versions bit for bit, on every intersect call of its first
+    bounce step (the walks' included); that iteration's device time by
+    kernel (profiled, device only).  Returns (launches, {kernel: ms})."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.accel import twolevel as TT
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import intersect as TX
+    from statmc_tpu_torch.testscenes import volpath_terrain_text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "volpath-terrain.pbrt", volpath_terrain_text(
+            width=64, height=36, spp=1, iterations=1, maxdepth=MAXDEPTH,
+            n=VOLPATH_TERRAIN_N, grid=16, denoise=False, seed=SEED))
+        r = load(path, device="cuda")
+    if not (isinstance(r.s.bvh, TT.TwoLevelTris) and r.s.icfg.volumetric):
+        raise AssertionError(f"volpath two-level: {type(r.s.bvh).__name__}")
+    r.progress = False
+    _zero_counts()
+    log = r.render(verbose=False)[-1]
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    film = r.film_mean.cpu().numpy()
+    if min(launches["B3"], launches["B4"]) <= 0 or not (
+            np.isfinite(film).all() and film.mean() > 0):
+        raise AssertionError(f"volpath two-level: launches {launches}, film "
+                             f"mean {film.mean()}")
+    calls = _record_volpath_step(r, TX, "intersect_twolevel")
+    walk_calls, blocks = 0, 0
+    for k, (tl, o, d, t_max, in_walk) in enumerate(calls):
+        _, o_p, d_p, tm_p = TT.blocks(tl, o, d, t_max)
+        rays = TT.slab_rays(o_p, d_p, tm_p)
+        vote = TT.cull(tl.bounds, rays)
+        if not torch.equal(vote, TT.cull_plain(tl.bounds, rays)):
+            raise AssertionError(f"B3 on volpath terrain call {k}: votes "
+                                 "differ")
+        order, n_eff, mask = TT.worklists(tl, vote)
+        feat = TT.block_features(o_p, d_p)
+        tmb = tm_p.reshape(-1, TT.RT_WALK)
+        t_k, id_k = TT.walk(tl.table, order, n_eff, mask, feat, tmb,
+                            tl.fsub, tl.packed)
+        sub = torch.nonzero((tmb > 0).any(1))[:, 0]
+        if sub.numel():
+            t_p, id_p = TT.walk_plain(tl.table, order[sub], n_eff[sub],
+                                      mask[sub], feat[sub], tmb[sub],
+                                      tl.fsub)
+            if not (torch.equal(id_p, id_k[sub]) and torch.equal(
+                    t_p.view(torch.int32), t_k[sub].view(torch.int32))):
+                raise AssertionError(f"B4 on volpath terrain call {k}: "
+                                     "(t, id) differ")
+        walk_calls += in_walk
+        blocks += sub.numel()
+    if walk_calls < 4:
+        raise AssertionError(f"volpath two-level: {walk_calls} walk calls")
+    _, groups, _, _, _ = _profile(lambda: r.run_iteration(1), host=False)
+    print(f"volpath two-level: {r.s.bvh.n_tris} tris, 64x36, 1 spp, "
+          f"{log['rays_total']:.0f} rays in {log['render_s']:.3f} s, film "
+          f"mean {film.mean():.5f}, launches {launches}; B3 votes on every "
+          f"block and B4 (t, id) on the {blocks} blocks with a live ray "
+          f"bit-identical to plain on all {len(calls)} intersect calls of "
+          f"one bounce step ({walk_calls} of them the walks'); profiled "
+          f"iteration (device only): " + ", ".join(
+              f"{g} {ms:.1f} ms ({n})" for g, (ms, n) in groups.items() if n)
+          + f" [{card}]", flush=True)
+    return launches, {k: groups[k][0] for k in ("B3", "B4")}
+
+
 def _print_build(cuda_build):
     """What the compiler and the runtime report for kernels B1 and B4:
     ptxas -v (registers, spills, shared memory; only when this process
@@ -2198,8 +2590,12 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     ht, ht_launches, ht_log, ht_rate = phase(
         "hair sss terrain", phase_hair_sss, card, "terrain", render_s,
         terrain_rays)
+    vp, vp_launches, vp_log, vp_rate = phase(
+        "volpath", phase_volpath, card, stair_s, stair_rays)
     probe_checked = phase("SSS probe calls", phase_sss_probe_calls, card, hs,
                           ht)
+    walk_checked = phase("volpath walk calls", phase_volpath_walk_calls, card,
+                         vp)
     path_ms, stair_whole = phase("staircase profile", phase_staircase_profile,
                                  card, rs, stair_s)
     del rs
@@ -2215,6 +2611,9 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     ht_ms = phase("hair sss terrain profile", phase_hair_sss_terrain_profile,
                   card, ht)
     del ht
+    vp_ms = phase("volpath profile", phase_volpath_profile, card, vp,
+                  vp_log["render_s"], stair_whole)
+    del vp
     phase("B3 main-path rays", phase_b3_main_rays, card, r.s.bvh.bounds,
           cull_calls, other)
     del cull_calls
@@ -2227,6 +2626,10 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     phase("hair sss small", phase_small_reference, card,
           "hair sss staircase", hair_sss_small(), HAIR_SMALL_SHARE, 0.0,
           ("B1", "B2"))
+    vt_launches, vt_ms = phase("volpath two-level", phase_volpath_twolevel,
+                               card)
+    phase("volpath small", phase_small_reference, card, "volpath staircase",
+          volpath_small, SMALL_SHARE, 1e-3, ("B1", "B2"))
     cli = phase("CLI", phase_cli, card)
     cam = b34["camera"]
     kernels = [
@@ -2295,7 +2698,13 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
         k.update({"hair_sss_staircase_launches": hs_launches[b],
                   "hair_sss_staircase_main_path_ms": hs_ms.get(b),
                   "hair_sss_terrain_launches": ht_launches[b],
-                  "hair_sss_terrain_main_path_ms": ht_ms.get(b)})
+                  "hair_sss_terrain_main_path_ms": ht_ms.get(b),
+                  # The full-width volpath staircase (fused: B1, B2) and
+                  # the small volpath terrain (two-level: B3, B4).
+                  "volpath_launches": vp_launches[b],
+                  "volpath_main_path_ms": vp_ms.get(b),
+                  "volpath_terrain_launches": vt_launches[b],
+                  "volpath_terrain_main_path_ms": vt_ms.get(b)})
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,
@@ -2307,7 +2716,10 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
         "hair_sss_terrain_rays_per_s": ht_rate,
         "staircase_rays_per_s": stair_rays / stair_s,
         "terrain_rays_per_s": terrain_rays / render_s,
-        "sss_probe_calls_checked": probe_checked}}))
+        "sss_probe_calls_checked": probe_checked,
+        "volpath_render_s": vp_log["render_s"],
+        "volpath_rays_per_s": vp_rate,
+        "volpath_walk_calls_checked": walk_checked}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

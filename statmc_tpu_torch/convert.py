@@ -9,6 +9,7 @@ import torch
 
 from .accel.fused import FusedTris
 from .accel.twolevel import TwoLevelTris
+from .render.fourier import FourierTables
 from .render.lightdistrib import LightDistribution
 from .render.sss import SSSTables
 from .scene.build import SceneTables
@@ -17,9 +18,9 @@ from .scene.textures import TextureTable
 
 def scene_tables(scene, device="cpu") -> SceneTables:
     """A JAX-package SceneTables -> the port's SceneTables on `device`
-    (its texture table, environment-map tables, image-light rows and
-    BSSRDF tables included; the JAX package's SceneFlags become the
-    port's four flags)."""
+    (its texture table, environment-map tables, image-light rows, BSSRDF,
+    media and Fourier tables and camera medium included; the JAX
+    package's SceneFlags become the port's four flags)."""
     flags = {f: bool(getattr(scene.flags, f))
              for f in ("has_textures", "has_image_lights", "has_hair",
                        "has_sss")}
@@ -27,9 +28,13 @@ def scene_tables(scene, device="cpu") -> SceneTables:
                          else np.asarray(x) for x in scene.textures])
     sss = (None if scene.sss is None
            else SSSTables(*[np.asarray(x) for x in scene.sss]))
+    fourier = (None if scene.fourier is None
+               else FourierTables(*[np.asarray(x) for x in scene.fourier]))
     fields = {f: np.asarray(getattr(scene, f)) for f in SceneTables._fields
-              if f not in ("textures", "sss", *flags)}
-    return SceneTables(textures=tex, sss=sss, **fields,
+              if f not in ("textures", "sss", "fourier", "cam_medium",
+                           *flags)}
+    return SceneTables(textures=tex, sss=sss, fourier=fourier,
+                       cam_medium=int(scene.cam_medium), **fields,
                        **flags).to_device(device)
 
 

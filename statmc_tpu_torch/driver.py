@@ -11,7 +11,8 @@ by block.
 Entry points: ``load(path, device=...).render(iterations=...)`` and the
 command line, ``python -m statmc_tpu_torch`` (__main__.py).  Path
 regeneration (make_regen_chunk_fn) renders every sampler mode but the
-lockstep table, which pins the per-sample driver (make_chunk_fn);
+lockstep table, which pins the per-sample driver (make_chunk_fn), as
+volpath scenes with media do;
 ``Renderer.render_lockstep_exact`` replays the reference's own draw
 streams; ``denoise_from_disk`` re-filters a written PFM set; and
 ``save_checkpoint``/``restore_checkpoint`` resume a render bit for bit.
@@ -80,17 +81,10 @@ def _check_supported(desc: SceneDescription) -> None:
     never silently renders something else."""
     if desc.integrator_name in ("bdpt", "mlt", "sppm", "ao"):
         raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_REST)
-    if desc.integrator_name == "volpath" and desc.named_media:
-        raise _unported("participating media (volpath)", _ITEM_REST)
     if getattr(desc, "accelerator_name", "bvh") == "kdtree":
         raise _unported('Accelerator "kdtree"', _ITEM_REST)
     if desc.camera_name == "realistic":
         raise _unported('Camera "realistic"', _ITEM_REST)
-    mats = [sd.material for sd in desc.shapes] + list(
-        desc.named_materials.values())
-    for md in mats:
-        if md is not None and md.mat_type == "fourier":
-            raise _unported(f'Material "{md.mat_type}"', _ITEM_REST)
 
 
 def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
@@ -117,7 +111,8 @@ def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
     fields = {}
     for name in ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1",
                  "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat",
-                 "tri_light", "tri_has_normals"):
+                 "tri_light", "tri_has_normals", "tri_med_in",
+                 "tri_med_out"):
         fields[name] = np.asarray(getattr(scene_np, name))[order]
     lp = np.asarray(scene_np.light_prim).copy()
     if lp.size:
@@ -148,6 +143,10 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
     height = int(desc.film_params.find_one("yresolution", 480))
     filename = str(desc.film_params.find_one("filename", "out.pfm"))
     direct_only = desc.integrator_name in ("directlighting", "whitted")
+    # volpath runs the media-aware bounce loop (render/volume.py) when the
+    # scene declares media; without media it is the surface path tracer.
+    volumetric = (desc.integrator_name == "volpath"
+                  and len(desc.named_media) > 0)
 
     pixel_samples = int(desc.sampler_params.find_one("pixelsamples", 16))
     ecfg = E.derive_config(desc.integrator_params, desc.extra_params,
@@ -195,6 +194,8 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
         null_extra=8 if has_null else 0,
         mat_types=frozenset(np.unique(scene_np.mat_type).tolist()),
         enable_sss=scene_np.sss is not None,
+        volumetric=volumetric,
+        has_grid_media=volumetric and scene_np.has_grid_media,
     )
 
     pb = desc.integrator_params.find_ints("pixelbounds")
@@ -270,11 +271,17 @@ def make_chunk_fn(setup: RenderSetup):
     make_chunk_fn): for each of `n_samples` samples, every pixel block
     traces one sample per lane through ``integrator.trace``.  Same
     signature and results as make_regen_chunk_fn; the lockstep sampler
-    pins it, since its table is addressed by sample."""
+    pins it, since its table is addressed by sample, and so do volpath
+    scenes with media, whose bounce loop (render/volume.py) it calls in
+    place of ``integrator.trace``."""
     icfg, ecfg, cam = setup.icfg, setup.ecfg, setup.cam
     W, P = setup.width, setup.width * setup.height
     dev = setup.device
     mode = icfg.sampler_mode
+    if icfg.volumetric:
+        from .render.volume import trace_volpath as trace_fn
+    else:
+        trace_fn = trace
 
     def chunk(states, film_sum, film_w, ray_total, stats_acc, base_key,
               sample_start: int, avg_ls, win_b, win_l, feedback_on: bool,
@@ -294,7 +301,7 @@ def make_chunk_fn(setup: RenderSetup):
                 pxy = torch.stack([(ids % W).to(torch.float32),
                                    (ids // W).to(torch.float32)], dim=-1)
                 o, d = CAM.generate_rays(cam, pxy + u_cam)
-                out = trace(setup.scene, setup.bvh, setup.dist, icfg, o, d,
+                out = trace_fn(setup.scene, setup.bvh, setup.dist, icfg, o, d,
                             keys, avg_ls[start:end], win_b[start:end],
                             win_l[start:end], feedback_on,
                             albedo_luts=setup.albedo_luts, ld_stream=ld)
@@ -381,10 +388,12 @@ class Renderer:
     def __init__(self, setup: RenderSetup):
         self.s = setup
         self.device = setup.device
-        # Path regeneration is the product path; the lockstep table pins
-        # the per-sample driver (statmc_tpu/driver.py:733-744).
+        # Path regeneration is the product path; the lockstep table and
+        # volpath with media pin the per-sample driver
+        # (statmc_tpu/driver.py:733-744).
         self.chunk_fn = (make_chunk_fn(setup)
-                         if setup.icfg.sampler_mode == crng.MODE_LOCKSTEP
+                         if (setup.icfg.sampler_mode == crng.MODE_LOCKSTEP
+                             or setup.icfg.volumetric)
                          else make_regen_chunk_fn(setup))
         self.denoiser = (
             StatDenoiser(setup.ecfg, setup.width, setup.height,

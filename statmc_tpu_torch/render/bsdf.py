@@ -9,8 +9,9 @@ substrate, uber, translucent, mirror, glass (smooth and rough), disney,
 hair (the Marschner model of render/hair.py on lanes with a width
 offset, else the fallback lobe pair) and kdsubsurface/subsurface (their
 FresnelSpecular interface when the scene has BSSRDF tables; the
-integrator's SSS block takes the transmitted lanes).  Fourier materials
-are refused by driver.prepare.
+integrator's SSS block takes the transmitted lanes) and fourier (a
+tabulated .bsdf through render/fourier.py on the lanes with a table, the
+substrate pair on those without).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from ..core import math as cm
 from ..scene import build as sb
 from ..scene.textures import sample_texture
-from . import hair
+from . import fourier, hair
 
 INV_PI = 1.0 / math.pi
 
@@ -66,6 +67,11 @@ class MaterialLanes(NamedTuple):
     # subsurface tables.  When set, kdsubsurface/subsurface lanes expose
     # the Kr/Kt FresnelSpecular interface (kdsubsurface.cpp:70-74).
     sss_id: Any = None
+    # FourierBSDF: the table index per lane (-1: no readable .bsdf, the
+    # substrate fallback) and the scene's stacked tables; both None when
+    # the scene has no tables, and then no Fourier code runs.
+    fourier_id: Any = None
+    fourier_tab: Any = None
 
 
 def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
@@ -76,7 +82,8 @@ def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
     1 and keep their Kd bit for bit, and an untextured scene runs no
     lookup at all.  With uv given in a hair scene, hair_h comes from the
     ribbon's v coordinate (scene/tessellate.py curve(): v in {0, 1}
-    across the strip)."""
+    across the strip).  A scene with Fourier tables gets each lane's table
+    index."""
     m = mat_id.long()
     kd = scene.mat_kd[m]
     if uv is not None and scene.has_textures:
@@ -91,7 +98,10 @@ def gather_materials(scene: sb.SceneTables, mat_id, uv=None, p=None,
         k=scene.mat_k[m], rough_u=scene.mat_rough_u[m],
         rough_v=scene.mat_rough_v[m], sigma=scene.mat_sigma[m],
         hair_h=hair_h,
-        sss_id=scene.mat_sss_id[m] if scene.has_sss else None)
+        sss_id=scene.mat_sss_id[m] if scene.has_sss else None,
+        fourier_id=(None if scene.fourier is None
+                    else scene.mat_fourier_id[m]),
+        fourier_tab=scene.fourier)
 
 
 def _hair_lanes(m: MaterialLanes):
@@ -392,6 +402,19 @@ def _has(present, *types) -> bool:
     return present is None or not present.isdisjoint(types)
 
 
+def _fourier_lanes(m: MaterialLanes, present):
+    """The indices of the lanes whose material is a Fourier table, or
+    None when there are none (the scene has no tables, or no lane holds
+    one).  The table functions run on these lanes only, where the JAX
+    package runs them over all lanes and selects; they are per lane, so
+    each lane's result is the same."""
+    if m.fourier_tab is None or not _has(present, sb.MAT_FOURIER):
+        return None
+    lanes = torch.nonzero((m.mat_type == sb.MAT_FOURIER)
+                          & (m.fourier_id >= 0))[:, 0]
+    return lanes if lanes.numel() else None
+
+
 def evaluate(m: MaterialLanes, wo, wi, present=None):
     """(f [R,3], pdf [R]) of the non-delta lobes; zero for delta
     materials (BSDF::f + BSDF::Pdf over BSDF_ALL & ~BSDF_SPECULAR).
@@ -412,8 +435,8 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
                  (sb.MAT_TRANSLUCENT, matte_f, lam_pdf)]
 
     if _has(present, sb.MAT_METAL, sb.MAT_PLASTIC, sb.MAT_UBER,
-            sb.MAT_SUBSTRATE, sb.MAT_DISNEY, sb.MAT_GLASS, *_PLASTIC_LIKE,
-            sb.MAT_HAIR):
+            sb.MAT_SUBSTRATE, sb.MAT_FOURIER, sb.MAT_DISNEY, sb.MAT_GLASS,
+            *_PLASTIC_LIKE, sb.MAT_HAIR):
         mf_pdf = _microfacet_pdf(wo, wi, ax, ay)
     if _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_DISNEY,
             sb.MAT_GLASS, *_PLASTIC_LIKE):
@@ -456,10 +479,13 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         metal_f = _microfacet_reflection_f(wo, wi, ax, ay, F_cond)
         fams.append((sb.MAT_METAL, metal_f, mf_pdf))
 
-    if _has(present, sb.MAT_SUBSTRATE):
+    if _has(present, sb.MAT_SUBSTRATE, sb.MAT_FOURIER):
+        # Fourier lanes without a table keep the substrate pair.
         substrate_f = _fresnel_blend_f(m.kd, m.ks, wo, wi, ax, ay)
-        fams.append((sb.MAT_SUBSTRATE, substrate_f,
-                     0.5 * (lam_pdf + mf_pdf)))
+        substrate_pdf = 0.5 * (lam_pdf + mf_pdf)
+        fams += [(mt, substrate_f, substrate_pdf)
+                 for mt in (sb.MAT_SUBSTRATE, sb.MAT_FOURIER)
+                 if _has(present, mt)]
 
     if _has(present, sb.MAT_HAIR):
         # The fallback lobe pair (lanes without a width offset): an
@@ -477,6 +503,17 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         pdf = torch.where(sel, pp, pdf)
     f = torch.where(refl[..., None], f, 0.0)
     pdf = torch.where(refl, pdf, 0.0)
+
+    ft = _fourier_lanes(m, present)
+    if ft is not None:
+        # The table's f and pdf (reflection.cpp:322-427) on its lanes,
+        # after the reflection mask: the table encodes its own sidedness,
+        # transmission included.
+        fid, wo_f, wi_f = m.fourier_id[ft], wo[ft], wi[ft]
+        f = f.index_put((ft,), fourier.eval_f(m.fourier_tab, fid, wo_f,
+                                              wi_f))
+        pdf = pdf.index_put((ft,), fourier.pdf_wi(m.fourier_tab, fid, wo_f,
+                                                  wi_f))
 
     if m.hair_h is not None and _has(present, sb.MAT_HAIR):
         # The Marschner model overrides the fallback pair on hair lanes;
@@ -530,8 +567,8 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
 
     hair_model = m.hair_h is not None and _has(present, sb.MAT_HAIR)
     glossy = _has(present, sb.MAT_PLASTIC, sb.MAT_UBER, sb.MAT_SUBSTRATE,
-                  sb.MAT_DISNEY, sb.MAT_METAL, sb.MAT_GLASS, *_PLASTIC_LIKE,
-                  sb.MAT_HAIR)
+                  sb.MAT_FOURIER, sb.MAT_DISNEY, sb.MAT_METAL, sb.MAT_GLASS,
+                  *_PLASTIC_LIKE, sb.MAT_HAIR)
     # The BSSRDF interface samples as smooth glass does (FresnelSpecular);
     # its transmitted lanes feed the integrator's Sample_Sp block.
     sssl = sss_interface(m) if _has(present, *_PLASTIC_LIKE) else None
@@ -545,8 +582,10 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
         two_lobe = ((t == sb.MAT_PLASTIC) | (t == sb.MAT_UBER)
                     | (t == sb.MAT_SUBSTRATE) | (t == sb.MAT_DISNEY))
         # Hair samples the Marschner lobes when it has them, else the
-        # two-lobe proposal, as kdsubsurface/subsurface outside the BSSRDF.
-        for mt in (*_PLASTIC_LIKE, *(() if hair_model else (sb.MAT_HAIR,))):
+        # two-lobe proposal, as kdsubsurface/subsurface outside the BSSRDF
+        # and Fourier lanes without a table do.
+        for mt in (sb.MAT_FOURIER, *_PLASTIC_LIKE,
+                   *(() if hair_model else (sb.MAT_HAIR,))):
             if _has(present, mt):
                 two_lobe = two_lobe | (t == mt)
         if sssl is not None:
@@ -599,6 +638,13 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
         with torch.profiler.record_function("hair.sample_wi"):
             wi = torch.where((t == sb.MAT_HAIR)[..., None],
                              hair.sample_wi(_hair_lanes(m), wo, u2, uc), wi)
+    ft = _fourier_lanes(m, present)
+    if ft is not None:
+        # A table samples its own distribution (reflection.cpp:429-480);
+        # evaluate() returns the matching table pdf.
+        wi_ft, _ = fourier.sample_wi(m.fourier_tab, m.fourier_id[ft],
+                                     wo[ft], u2[ft])
+        wi = wi.index_put((ft,), wi_ft)
 
     f_eval, pdf_eval = evaluate(m, wo, wi, present)
 

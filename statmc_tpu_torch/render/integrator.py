@@ -55,6 +55,12 @@ class IntegratorConfig(NamedTuple):
     # (render/sss.py, statpath.cpp:892-926); off, no probe-chain call and
     # no exit-vertex NEE runs.
     enable_sss: bool = False
+    # volpath + the scene declares media: the driver calls the media-aware
+    # bounce loop (render/volume.py, volpath.cpp:54-188) instead of trace.
+    volumetric: bool = False
+    # A grid medium exists: run delta and ratio tracking (homogeneous
+    # media are closed-form).
+    has_grid_media: bool = False
 
 
 class SampleOutput(NamedTuple):

@@ -89,7 +89,13 @@ def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
     uv_axes = None
     tri_idx = torch.where(kind == PRIM_TRI, idx, 0).long()
     sph_idx = torch.where(kind == PRIM_SPH, idx, 0).long()
-    p = o + t_best[:, None] * d
+    # Scenes with media round the hit point as the JAX package's compiled
+    # code does, o + t d contracted to an FMA: the transmittance walk's
+    # next segment starts there, and where a null face lies on another
+    # surface (a smoke box on the floor) an ulp of it decides which one
+    # the walk hits.  Other scenes keep the plain sum.
+    p = (cm.fma(t_best[:, None], d, o) if scene.has_media
+         else o + t_best[:, None] * d)
     has_tris = scene.tri_p0.shape[0] > 0
     has_sph = scene.sph_center.shape[0] > 0
 

@@ -1,12 +1,12 @@
 # Copied from statmc_tpu/scene/build.py (numpy side: build_scene,
-# SceneTables, _material_row, the BSSRDF table stacking); to_device
-# returns torch tensors.
+# SceneTables, _material_row, the BSSRDF, media and Fourier table
+# stacking); to_device returns torch tensors.
 """SceneDescription -> SoA scene tables (host numpy, then tensors).
 
-Copied from the JAX package with its behaviour unchanged for every
-feature the port renders.  Features the port does not render yet
-(Fourier materials, media) are refused by ``driver.prepare`` before this
-module runs; the few table columns they would fill are dropped here.
+Copied from the JAX package with its behaviour unchanged: the
+participating media tables (MakeMedium, api.cpp:693-738), each shape's
+MediumInterface, the camera's medium and the FourierBSDF tables are
+built here as there.
 """
 from __future__ import annotations
 
@@ -140,6 +140,30 @@ class SceneTables(NamedTuple):
     # subsurface materials) and each material's table index or -1.
     sss: Any = None
     mat_sss_id: Any = None  # [M]
+    # Participating media (volpath; render/volume.py; src/core/medium.h,
+    # src/media/homogeneous.cpp:44-77, src/media/grid.cpp:47-115).
+    # med_grid packs every grid medium's density into one zero-padded
+    # [M, Dz, Dy, Dx] block (homogeneous rows hold 1 voxel of 1.0);
+    # med_w2m maps world points into the [0,1]^3 density space (inverse
+    # of CTM * Translate(p0) * Scale(p1-p0)).
+    med_sigma_a: Any = None  # [M,3]
+    med_sigma_s: Any = None  # [M,3]
+    med_g: Any = None  # [M] Henyey-Greenstein asymmetry
+    med_kind: Any = None  # [M] 0 = homogeneous, 1 = grid
+    med_w2m: Any = None  # [M,4,4] world -> density space
+    med_grid: Any = None  # [M,Dz,Dy,Dx]
+    med_nxyz: Any = None  # [M,3] each grid's true (nx, ny, nz)
+    med_inv_maxd: Any = None  # [M] 1 / max(density) (grid tracking)
+    med_sigt0: Any = None  # [M] scalar sigma_t (grid; channel 0)
+    tri_med_in: Any = None  # [T] medium id inside (-1 vacuum)
+    tri_med_out: Any = None  # [T]
+    sph_med_in: Any = None  # [S]
+    sph_med_out: Any = None  # [S]
+    cam_medium: int = -1  # medium id camera rays start in
+    # FourierBSDF tables (render/fourier.py FourierTables; None when the
+    # scene has no readable .bsdf file) and each material's table or -1.
+    fourier: Any = None
+    mat_fourier_id: Any = None  # [M]
     # Host flags (statmc_tpu/scene/build.py SceneFlags): they gate the
     # texture lookups, the image-light block, the hair model with its
     # tangent and the BSSRDF transport.
@@ -147,6 +171,14 @@ class SceneTables(NamedTuple):
     has_image_lights: bool = False  # any goniometric/projection light
     has_hair: bool = False  # any Material "hair" row
     has_sss: bool = False  # any subsurface table (sss is not None)
+
+    @property
+    def has_media(self) -> bool:
+        return self.med_kind is not None and self.med_kind.shape[0] > 0
+
+    @property
+    def has_grid_media(self) -> bool:
+        return self.has_media and bool((self.med_kind == 1).any())
 
     def to_device(self, device="cpu") -> "SceneTables":
         """numpy -> tensors on `device` (f32 floats, int32 ids, bool
@@ -160,8 +192,11 @@ class SceneTables(NamedTuple):
         return SceneTables(*[conv(x) for x in self])._replace(
             world_radius=float(self.world_radius),
             env_light_id=int(self.env_light_id),
+            cam_medium=int(self.cam_medium),
             textures=self.textures.to_device(device),
-            sss=None if self.sss is None else self.sss.to_device(device))
+            sss=None if self.sss is None else self.sss.to_device(device),
+            fourier=(None if self.fourier is None
+                     else self.fourier.to_device(device)))
 
 
 def scene_has_hair(scene) -> bool:
@@ -490,6 +525,13 @@ def build_scene(desc: SceneDescription,
 
     tri_p, tri_n, tri_uv, tri_mat, tri_light, tri_hasn = [], [], [], [], [], []
     sph_c, sph_r, sph_mat, sph_light, sph_flip = [], [], [], [], []
+    tri_med_in, tri_med_out, sph_med_in, sph_med_out = [], [], [], []
+    # Medium ids by declaration order (-1 = vacuum / unknown name).
+    med_names = list(desc.named_media.keys())
+    med_id = {n: i for i, n in enumerate(med_names)}
+
+    def medium_ref(name):
+        return med_id.get(name, -1) if name else -1
     mat_rows: list[dict] = []
     mat_cache: dict[int, int] = {}
     lights: list[dict] = []
@@ -528,6 +570,8 @@ def build_scene(desc: SceneDescription,
     for sd in desc.shapes:
         mid = material_id(sd.material)
         lid = add_area_light(sd.area_light) if sd.area_light is not None else -1
+        m_in = medium_ref(sd.medium_in)
+        m_out = medium_ref(sd.medium_out)
         if sd.shape_type not in ("sphere",):
             if sd.shape_type in ("trianglemesh", "plymesh"):
                 mesh = _load_mesh(sd, missing_assets)
@@ -578,6 +622,8 @@ def build_scene(desc: SceneDescription,
                 tri_hasn.append(has_n)
                 tri_mat.append(mid)
                 tri_light.append(lid)
+                tri_med_in.append(m_in)
+                tri_med_out.append(m_out)
             if lid >= 0:
                 # pbrt attaches one DiffuseAreaLight per Shape, and a
                 # triangle mesh is a vector of Triangle shapes -> one
@@ -600,6 +646,8 @@ def build_scene(desc: SceneDescription,
                 bool(sd.reverse_orientation)
                 ^ bool(np.linalg.det(o2w[:3, :3].astype(np.float64)) < 0)
             ) else 1.0)
+            sph_med_in.append(m_in)
+            sph_med_out.append(m_out)
             if lid >= 0:
                 lights[lid]["kind"] = LIGHT_AREA_SPH
                 lights[lid]["prim"] = len(sph_c) - 1
@@ -780,11 +828,104 @@ def build_scene(desc: SceneDescription,
     if not mat_rows:
         mat_rows.append(_material_row(None, desc.textures))
 
+    # Participating media tables (core/api.cpp:693-738 MakeMedium).
+    M = len(med_names)
+    med_sa = np.zeros((M, 3), np.float32)
+    med_ss = np.zeros((M, 3), np.float32)
+    med_g = np.zeros((M,), np.float32)
+    med_kind = np.zeros((M,), np.int32)
+    med_w2m = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+    med_imd = np.ones((M,), np.float32)
+    med_st0 = np.zeros((M,), np.float32)
+    med_nxyz = np.ones((M, 3), np.int32)
+    grids: list[np.ndarray] = []
+    for i, n in enumerate(med_names):
+        md = desc.named_media[n]
+        p = md.params
+        mtype = str(p.find_one("type", "homogeneous"))
+        scale = float(p.find_one("scale", 1.0))
+        sa = p.find_spectrum(
+            "sigma_a", np.array([0.0011, 0.0024, 0.014], np.float32))
+        ss = p.find_spectrum(
+            "sigma_s", np.array([2.55, 3.21, 3.77], np.float32))
+        med_sa[i] = np.asarray(sa, np.float32) * scale
+        med_ss[i] = np.asarray(ss, np.float32) * scale
+        med_g[i] = float(p.find_one("g", 0.0))
+        if mtype == "heterogeneous":
+            dens = p.find_floats("density")
+            nx = int(p.find_one("nx", 1))
+            ny = int(p.find_one("ny", 1))
+            nz = int(p.find_one("nz", 1))
+            if dens is None or dens.size != nx * ny * nz:
+                raise ValueError(
+                    f"medium {n!r}: density size != nx*ny*nz")
+            g3 = np.asarray(dens, np.float32).reshape(nz, ny, nx)
+            med_kind[i] = 1
+            med_nxyz[i] = (nx, ny, nz)
+            # Density space: medium2world * Translate(p0) * Scale(p1-p0)
+            # maps [0,1]^3 onto the grid bounds (api.cpp:731-734).
+            gp0 = p.find_floats("p0")
+            gp1 = p.find_floats("p1")
+            gp0 = (np.asarray(gp0, np.float32) if gp0 is not None
+                   else np.zeros(3, np.float32))
+            gp1 = (np.asarray(gp1, np.float32) if gp1 is not None
+                   else np.ones(3, np.float32))
+            d2m = np.eye(4, dtype=np.float32)
+            d2m[:3, 3] = gp0
+            d2m[0, 0], d2m[1, 1], d2m[2, 2] = gp1 - gp0
+            m2w = md.medium_to_world.astype(np.float64) @ d2m.astype(
+                np.float64)
+            med_w2m[i] = np.linalg.inv(m2w).astype(np.float32)
+            med_imd[i] = 1.0 / max(float(g3.max()), 1e-12)
+            # Grid delta/ratio tracking needs a spectrally uniform
+            # sigma_t (GridDensityMedium ctor asserts it); use channel 0.
+            med_st0[i] = float(med_sa[i][0] + med_ss[i][0])
+            grids.append(g3)
+        else:
+            grids.append(np.ones((1, 1, 1), np.float32))
+    if M:
+        Dz = max(g.shape[0] for g in grids)
+        Dy = max(g.shape[1] for g in grids)
+        Dx = max(g.shape[2] for g in grids)
+        med_grid = np.zeros((M, Dz, Dy, Dx), np.float32)
+        for i, g3 in enumerate(grids):
+            med_grid[i, : g3.shape[0], : g3.shape[1], : g3.shape[2]] = g3
+    else:
+        med_grid = np.zeros((0, 1, 1, 1), np.float32)
+
     # Resolve material-texture references now (they land in mat_kd_tex
     # below) so missing texture files surface in the asset report.
     mat_kd_tex = np.asarray(
         [resolve_texture(r.get("kd_tex_name"))
          if r.get("kd_tex_name") else -1 for r in mat_rows], np.int32)
+
+    # FourierBSDF tables (materials/fourier.cpp:116-206): read each
+    # fourier material's .bsdf file into stacked tables
+    # (render/fourier.py); unreadable/missing files keep the substrate
+    # fallback (mat_fourier_id -1) and join the missing-asset report.
+    fourier_tables = None
+    mat_fourier_id = np.full((len(mat_rows),), -1, np.int32)
+    if any(r.get("fourier_file") for r in mat_rows):
+        from ..render.fourier import read_bsdf, stack_tables
+
+        base_cwd = desc.shapes[0].cwd if desc.shapes else "."
+        cache: dict[str, int] = {}
+        files = []
+        for mi_, r in enumerate(mat_rows):
+            fn = r.get("fourier_file")
+            if r["mat_type"] != MAT_FOURIER or not fn:
+                continue
+            path = fn if os.path.isabs(fn) else os.path.join(base_cwd, fn)
+            if path not in cache:
+                try:
+                    files.append(read_bsdf(path))
+                    cache[path] = len(files) - 1
+                except (OSError, ValueError):
+                    missing_assets.append(path)
+                    cache[path] = -1
+            mat_fourier_id[mi_] = cache[path]
+        if files:
+            fourier_tables = stack_tables(files)
 
     # Missing-asset report: a scene that "builds" with 2 triangles
     # because its models/ tree is absent must never pass silently.
@@ -905,6 +1046,22 @@ def build_scene(desc: SceneDescription,
         world_radius=np.float32(wradius),
         sss=sss_tables,
         mat_sss_id=mat_sss_id,
+        med_sigma_a=med_sa,
+        med_sigma_s=med_ss,
+        med_g=med_g,
+        med_kind=med_kind,
+        med_w2m=med_w2m,
+        med_grid=med_grid,
+        med_nxyz=med_nxyz,
+        med_inv_maxd=med_imd,
+        med_sigt0=med_st0,
+        tri_med_in=np.asarray(tri_med_in, np.int32),
+        tri_med_out=np.asarray(tri_med_out, np.int32),
+        sph_med_in=np.asarray(sph_med_in, np.int32),
+        sph_med_out=np.asarray(sph_med_out, np.int32),
+        cam_medium=medium_ref(desc.camera_medium),
+        fourier=fourier_tables,
+        mat_fourier_id=mat_fourier_id,
         has_textures=bool(np.any(mat_kd_tex >= 0)),
         has_image_lights=any(
             l["kind"] in (LIGHT_GONIO, LIGHT_PROJ) for l in lights),

@@ -513,3 +513,174 @@ def hair_sss_terrain_text(width=1280, height=720, spp=4, iterations=1,
                               denoise=denoise)
     head, _ = text.split("WorldBegin\n")
     return head + "WorldBegin\n" + body + "WorldEnd\n"
+
+
+# ---------------------------------------------------------------------------
+# Volpath scenes: a homogeneous haze that the camera starts in, a
+# heterogeneous smoke behind a null-material box, and FourierBSDF
+# materials whose .bsdf tables the port's own writer makes.
+
+_FOURIER = 'Material "fourier" "string bsdffile" ["{}"]\n'
+FOURIER_FILES = ("lambert.bsdf", "glossy.bsdf", "transmit.bsdf")
+
+
+def _bessel_i(k: int, x: float) -> float:
+    """Modified Bessel function I_k(x) by the trapezoid rule on
+    (1/pi) int_0^pi exp(x cos t) cos(k t) dt."""
+    t = np.linspace(0.0, np.pi, 2049)
+    f = np.exp(x * np.cos(t)) * np.cos(k * t)
+    return float(np.sum((f[1:] + f[:-1]) * 0.5) * (t[1] - t[0]) / np.pi)
+
+
+def fourier_assets(directory: str, seed: int = 0) -> None:
+    """Write the volpath scenes' three SCATFUN tables into `directory`,
+    made from `seed` by render/fourier.py's write_bsdf: a Lambertian
+    table (3 channels), a glossy reflector (1 channel, 16 azimuthal
+    orders over 32 mu nodes: a diffuse base plus a von Mises lobe around
+    the mirror direction) and a dielectric (eta 1.5, 1 channel) with a
+    weak diffuse reflection and a transmission lobe."""
+    import os
+
+    from .render.fourier import lambertian_file, write_bsdf
+
+    rng = np.random.default_rng(seed)
+    alb = 0.3 + 0.5 * rng.random(3)
+    mu, ak = lambertian_file(alb.astype(np.float32), n_mu=16)
+    write_bsdf(os.path.join(directory, FOURIER_FILES[0]), mu, ak, eta=1.0,
+               n_channels=3)
+
+    n_mu, orders = 32, 16
+    mu = np.linspace(-1.0, 1.0, n_mu, dtype=np.float32)
+    kappa = 6.0 + 4.0 * rng.random()
+    vm = np.array([_bessel_i(k, kappa) for k in range(orders)]) \
+        * np.exp(-kappa)
+    vm[1:] *= 2.0  # cosine-series coefficients of exp(kappa (cos - 1))
+    base, spec, width = 0.15 + 0.1 * rng.random(), 0.6, 0.25
+    gl = [[np.zeros((1, 0), np.float32) for _ in range(n_mu)]
+          for _ in range(n_mu)]
+    for o, mo in enumerate(mu):
+        for i, mi in enumerate(mu):
+            if mi * mo < 0:  # reflection side
+                lobe = spec * np.exp(-((abs(mi) - abs(mo)) / width) ** 2)
+                a = lobe * vm
+                a[0] += base / np.pi
+                gl[o][i] = (a * abs(mi)).astype(np.float32)[None, :]
+    write_bsdf(os.path.join(directory, FOURIER_FILES[1]), mu, gl, eta=1.0,
+               n_channels=1)
+
+    tr = [[np.zeros((1, 0), np.float32) for _ in range(n_mu)]
+          for _ in range(n_mu)]
+    vt = vm[:8] * 0.5
+    for o, mo in enumerate(mu):
+        for i, mi in enumerate(mu):
+            if mi * mo < 0:
+                a = np.zeros(8)
+                a[0] = 0.1 / np.pi
+            else:  # transmission side
+                a = 0.5 * np.exp(-((abs(mi) - abs(mo)) / 0.35) ** 2) * vt
+                a[0] += 0.05 / np.pi
+            tr[o][i] = (a * abs(mi)).astype(np.float32)[None, :]
+    write_bsdf(os.path.join(directory, FOURIER_FILES[2]), mu, tr, eta=1.5,
+               n_channels=1)
+
+
+def smoke_density(n: int, seed: int = 0) -> np.ndarray:
+    """[n, n, n] (z, y, x) smooth noise blob with maximum 1, made from
+    `seed`: a Gaussian envelope times a few random low-frequency waves."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(n) + 0.5) / n - 0.5
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    env = np.exp(-(x * x + y * y + z * z) / (2 * 0.22 ** 2))
+    wave = np.zeros_like(env)
+    for _ in range(6):
+        k = rng.normal(0.0, 6.0, 3)
+        wave += np.cos(k[0] * x + k[1] * y + k[2] * z
+                       + rng.random() * 6.28)
+    dens = env * np.clip(0.55 + 0.12 * wave, 0.0, None)
+    return (dens / dens.max()).astype(np.float32)
+
+
+def media_text(text: str, box, grid: int, seed: int,
+               haze=(0.02, 0.04, 0.3), smoke=(0.5, 1.5, 0.0),
+               boundary: str | None = "null") -> str:
+    """`text` (a statpath scene) as volpath with a homogeneous haze the
+    camera starts in (every shape without its own interface has it
+    outside, vacuum inside) and a grid x grid x grid smoke (`seed`)
+    filling the box (lo, hi), whose faces are a null material (boundary
+    "null": shadow rays walk through them, K = 9 segments) or glass
+    ("glass": a smoke tank; no null material, so K = 1), smoke inside,
+    haze outside; boundary None leaves the smoke out.  haze/smoke:
+    (sigma_a, sigma_s, g), equal across channels (grid tracking reads
+    channel 0 of sigma_t)."""
+    import io
+
+    med = (
+        'MakeNamedMedium "haze" "string type" ["homogeneous"] '
+        f'"rgb sigma_a" [{haze[0]} {haze[0]} {haze[0]}] '
+        f'"rgb sigma_s" [{haze[1]} {haze[1]} {haze[1]}] '
+        f'"float g" [{haze[2]}]\n'
+        'MediumInterface "" "haze"\n')
+    text = text.replace('Integrator "statpath"', 'Integrator "volpath"', 1)
+    head, world = text.split("LookAt", 1)
+    if boundary is None:
+        return head + med + "LookAt" + world
+    lo, hi = box
+    dens = io.StringIO()
+    np.savetxt(dens, smoke_density(grid, seed).reshape(1, -1), fmt="%.3g")
+    smoke_text = (
+        'MakeNamedMedium "smoke" "string type" ["heterogeneous"] '
+        f'"rgb sigma_a" [{smoke[0]} {smoke[0]} {smoke[0]}] '
+        f'"rgb sigma_s" [{smoke[1]} {smoke[1]} {smoke[1]}] '
+        f'"float g" [{smoke[2]}] '
+        f'"integer nx" [{grid}] "integer ny" [{grid}] "integer nz" [{grid}] '
+        f'"point p0" [{lo[0]} {lo[1]} {lo[2]}] '
+        f'"point p1" [{hi[0]} {hi[1]} {hi[2]}] '
+        f'"float density" [ {dens.getvalue().strip()} ]\n')
+    faces = ('Material "none"\n' if boundary == "null"
+             else 'Material "glass" "float index" [1.5]\n')
+    smoke_text += ('AttributeBegin\nMediumInterface "smoke" "haze"\n' + faces
+                   + _mesh_stmt(*_box_tris(lo, hi)) + 'AttributeEnd\n')
+    world = world.replace("WorldBegin\n", "WorldBegin\n" + smoke_text, 1)
+    return head + med + "LookAt" + world
+
+
+def volpath_scene_text(directory: str, width=1280, height=720, spp=4,
+                       iterations=1, maxdepth=8, grid: int = 128,
+                       denoise=True, filterradius=20, seed: int = 0,
+                       box_lift: float = 0.05) -> str:
+    """The staircase proxy under volpath: the haze, a grid^3 smoke in a
+    null box in the middle of the room, `box_lift` above the floor, three
+    Fourier spheres (the three tables of fourier_assets, written into
+    `directory`) and a quarter of the clutter boxes with the Lambertian
+    table.  box_lift=0 stands the box on the floor: its null bottom face
+    and the floor then lie in one plane, and which of the two a walk hits
+    turns on the last ulp of the segment's origin
+    (tests/test_torch_volpath_floor.py)."""
+    import os
+
+    fourier_assets(directory, seed)
+    mats = [_FOURIER.format(os.path.join(directory, n))
+            for n in FOURIER_FILES]
+    body = staircase_proxy(clutter_mats=[mats[0], None, None, None])
+    body += _sss_spheres([(mats[1], (4.0, 0.9, -2.8, 0.9)),
+                          (mats[2], (0.2, 0.8, -4.6, 0.75)),
+                          (mats[0], (-2.2, 1.2, -0.6, 0.9))])
+    text = scene_text(width=width, height=height, spp=spp,
+                      iterations=iterations, maxdepth=maxdepth,
+                      denoise=denoise, filterradius=filterradius, body=body)
+    return media_text(text, ((0.0, box_lift, -3.5),
+                             (3.0, 3.0 + box_lift, -0.5)), grid, seed)
+
+
+def volpath_terrain_text(width=1280, height=720, spp=4, iterations=1,
+                         maxdepth=8, n: int = 256, grid: int = 128,
+                         denoise=True, seed: int = 0,
+                         boundary: str = "null") -> str:
+    """The terrain proxy under volpath: the haze and a grid^3 smoke in a
+    box in the middle of the hall, its faces a null material or glass
+    (media_text's boundary); two-level from n = 88."""
+    text = terrain_scene_text(width=width, height=height, spp=spp,
+                              iterations=iterations, maxdepth=maxdepth, n=n,
+                              denoise=denoise)
+    return media_text(text, ((-1.5, 0.3, -1.5), (1.5, 3.3, 1.5)), grid,
+                      seed, boundary=boundary)

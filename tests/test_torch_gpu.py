@@ -2,7 +2,8 @@
 as the backward kernel of denoise/grad.py's FilterApply), an LD-sampler
 render and a textured render on the card against the CPU, the
 environment map's sampling search at 2^20 lanes on the card against the
-CPU, and the exact lockstep replay of tiny.pbrt on the card against the
+CPU, a volpath render on the card against the CPU and B1 on its walks'
+closest-hit calls, and the exact lockstep replay of tiny.pbrt on the card against the
 C++ reference's PFMs.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
@@ -589,3 +590,98 @@ def test_b1_on_probe_chain_inputs(cuda, tmp_path):
         _bits_equal(t_k, id_k, t_p, id_p)
         lives.append(int((t_max > 0).sum()))
     assert 0 < max(lives) < 64 * 48  # few of the film's lanes fire
+
+
+@pytest.mark.gpu
+def test_volpath_render_card_matches_cpu(cuda, tmp_path):
+    """The volpath staircase (haze, a 16^3 smoke behind a null box,
+    Fourier spheres and boxes) at 32x24 on the card against the CPU:
+    equal sample counts, ray totals within 0.1%, every buffer within rtol
+    1e-4 on 98% of its pixels; kernels B1 and B2 launched on the card."""
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import volpath_scene_text
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(volpath_scene_text(str(tmp_path), width=32, height=24,
+                                       spp=2, iterations=1, maxdepth=4,
+                                       grid=16, filterradius=2))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        b1, b2 = TF.intersect_tiles.launches, FC.run_filter.launches
+        r = load(str(path), device=dev)
+        r.progress = False
+        assert r.s.icfg.volumetric and r.s.scene.fourier is not None
+        runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
+        if dev == "cuda":
+            assert TF.intersect_tiles.launches > b1
+            assert FC.run_filter.launches > b2
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-3 * runs["cpu"][0]
+    gpu, cpu = runs["cuda"][1], runs["cpu"][1]
+    assert gpu.keys() == cpu.keys()
+    for k in cpu:
+        if k.endswith("-n"):
+            np.testing.assert_array_equal(gpu[k], cpu[k])
+            continue
+        assert np.isfinite(gpu[k]).all(), k
+        close = np.isclose(gpu[k], cpu[k], rtol=1e-4, atol=1e-6)
+        assert (close.all(-1) if close.ndim == 3 else close).mean() >= 0.98, k
+
+
+@pytest.mark.gpu
+def test_b1_on_volpath_walk_inputs(cuda, tmp_path):
+    """B1 against its plain version, bit for bit, on the inputs of every
+    closest-hit call that the transmittance walks (shadow, phase-MIS and
+    BSDF-MIS rays crossing null boundaries) make in the first bounce
+    step of a volpath render on the card."""
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import intersect as TX
+    from statmc_tpu_torch.render import volume as TV
+    from statmc_tpu_torch.testscenes import volpath_scene_text
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(volpath_scene_text(str(tmp_path), width=64, height=48,
+                                       spp=1, iterations=1, maxdepth=4,
+                                       grid=16, denoise=False))
+    r = load(str(path), device="cuda")
+    r.progress = False
+    calls, inside = [], [False]
+    real_fused, real_walk = TX.intersect_fused, TV.transmittance_walk
+    real_step = TV._volpath_step
+
+    def record(ft, o, d, t_max):
+        if inside[0]:
+            calls.append((ft, o.clone(), d.clone(), t_max.clone()))
+        return real_fused(ft, o, d, t_max)
+
+    def walk(*a, **k):
+        inside[0] = True
+        try:
+            return real_walk(*a, **k)
+        finally:
+            inside[0] = False
+
+    class Stop(Exception):
+        pass
+
+    def first_step(*a, **k):
+        real_step(*a, **k)
+        raise Stop()
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TX, "intersect_fused", record)
+    mp.setattr(TV, "transmittance_walk", walk)
+    mp.setattr(TV, "_volpath_step", first_step)
+    try:
+        with pytest.raises(Stop):
+            r.run_iteration(1)
+    finally:
+        mp.undo()
+    assert len(calls) >= 4  # four walks, some of several segments
+    for ft, o, d, t_max in calls:
+        raye, rayp = (x.contiguous() for x in TF.ray_features(o, d))
+        args = (ft.edge_table, ft.plane_table, raye, rayp, t_max)
+        t_k, id_k = TF.intersect_tiles(*args, ft.packed, ft.n_tris)
+        t_p, id_p = TF.intersect_plain(*args, ft.n_tris)
+        _bits_equal(t_k, id_k, t_p, id_p)
+    assert max(int((c[3] > 0).sum()) for c in calls) > 0
