@@ -55,7 +55,8 @@ and the final line is not printed:
    ``load(terrain).render(iterations=1)`` on the 131,554-triangle terrain
    proxy at 1280x720, 4 spp, maxdepth 8, with B3's and B4's launch counts
    set to 0 just before it and read just after;
-8a. the textured terrain: the same terrain with textures of every kind
+8a. the textured terrain: the same terrain (at FEATURE_SPP = 2 spp) with
+   textures of every kind
    (a 2048x2048 imagemap floor at uscale = vscale = 8, checkerboard boxes,
    fbm, wrinkled, windy, marble, dots, uv, bilerp, mix and scale on the
    spheres), an environment-mapped infinite light (a 2048x1024 EXR) and a
@@ -71,7 +72,8 @@ and the final line is not printed:
    clutter boxes kdsubsurface (13,358 triangles, fused path, 2
    iterations), then the terrain with a 2,048-curve tuft, 40 of the 120
    boxes kdsubsurface and 16 of the 48 spheres subsurface (164,322
-   triangles, two-level), both at the untextured scenes' settings and
+   triangles, two-level), both at the untextured scenes' settings but
+   FEATURE_SPP = 2 spp, and
    denoised: every kernel's launch count set to 0 just before the render
    and read just after (B1 and B2 on the staircase, B2, B3 and B4 on the
    terrain must launch); films finite with mean > 0; hair and subsurface
@@ -92,7 +94,8 @@ and the final line is not printed:
    homogeneous haze the camera starts in, a 128^3 grid smoke (made from
    SEED) behind a null-material box, three Fourier spheres and a quarter
    of the boxes Fourier (.bsdf tables written by the port's write_bsdf
-   from SEED), 4 spp, 1 iteration, maxdepth 8, denoised: B1 and B2 must
+   from SEED), VOLPATH_SPP = 1 spp, 1 iteration, maxdepth 8, denoised:
+   B1 and B2 must
    launch (counts set to 0 just before, read just after); every buffer
    finite, film mean > 0; Fourier on >= 5% of first hits; the share of
    camera paths with a medium vertex and in the smoke; rays/s beside the
@@ -103,6 +106,26 @@ and the final line is not printed:
 8e. volpath walk calls: B1 against its plain version bit for bit on
    every intersect call of that render's first bounce step, the walks'
    on all their rays, the camera path's on 32,768 seeded rays;
+8f. the realistic camera: the staircase through Camera "realistic"
+   (tests/fixtures/biconvex.dat, focused on the stairs, a 4 mm stop) at
+   the main path's settings: B1 and B2 must launch (counts set to 0
+   just before the render, read just after); every buffer finite, film
+   mean > 0; the share of camera rays the lens lets through; rays/s
+   beside the staircase's, peak device memory;
+8g. the kd-tree: the staircase under `Accelerator "kdtree"` (4 spp, 1
+   iteration, denoised): B2 must launch and B1 must not; the SAH
+   build's seconds, node count, depth and widest leaf; the walk's steps
+   a call (mean and maximum) against its cap, and steps a ray;
+8h. ao on the staircase (64 cosine probes, 4 spp; B1 must launch) and
+   on the terrain (1 spp; B3 and B4 must launch): rays/s beside the
+   statpath scene's;
+8i. sppm on the staircase (maxdepth 5, one photon a pixel, radius
+   0.05, 2 passes; B1 must launch): per pass the grid deposit's pairs
+   tested and kept, photons a visible point, the radius's shrink, and
+   pass 1 run twice (two renderers) equal bit for bit;
+8k. each of 8f-8i once more under torch.profiler, device only (after
+   all their unprofiled renders): kernels an iteration (the kd-tree's
+   one sample of its 4), device ms, busy share, B1-B4's ms;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
    iteration's denoise pass profiled once more on its own; then one more
@@ -119,10 +142,9 @@ and the final line is not printed:
    ``hair.eval_f``, ``hair.sample_wi``, ``sss.sample_sp``, ``sss.probe``
    and ``sss.direct`` ranges, B1's ms (B2's from its denoise pass alone);
    and the hair + SSS terrain's iteration (device only) for B2, B3, B4;
-   then the volpath iteration (device only): kernels, device ms, busy
-   share, B1's and B2's ms; and its first sample of 4 under the full
-   profiler (the whole iteration's host trace is too large to read in
-   time): device ms inside the ``volume.*`` and ``fourier.*`` ranges;
+   then the volpath iteration (its one sample, host and device):
+   kernels, device ms, busy share, B1's and B2's ms, and device ms
+   inside the ``volume.*`` and ``fourier.*`` ranges;
 10. kernel B3 on those rays: its time over all calls; votes against the
     two-stage plain cull, and the reject tests, per-ray tests and
     surviving boxes per block that its design spends there, on every
@@ -155,6 +177,10 @@ and the final line is not printed:
     2 iterations) on the card and on the CPU: ray totals within 0.1%,
     every buffer within rtol 1e-4 on >= 98% of its pixels, B1 and B2
     launched on the card;
+12f. the realistic, kd-tree, ao and sppm staircases at 32x24 on the
+    card and on the CPU: equal ray totals, every buffer within rtol
+    1e-4 on >= 98% of its pixels, the kernels of each path launched on
+    the card;
 12a. the command line: ``python -m statmc_tpu_torch`` in a subprocess on
     the 1280x720 staircase with configs/render-for-ours.pbrt's block (cut
     to maxdepth 8 and 4 spp), 2 iterations, every buffer written; then
@@ -217,6 +243,12 @@ SUBSET = 64  # blocks of 512 rays on which B4 meets its plain version
 # worst on an NVIDIA H100 80GB HBM3 at 700 W, with equal ray totals).
 SMALL_W, SMALL_H, SMALL_SHARE = 32, 24, 0.98
 TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
+# Samples a pixel of the feature scenes (the textured terrain, the hair +
+# SSS staircase and terrain): cut from 4 to 2 to keep the whole run inside
+# its time limit once the realistic, kd-tree, ao and sppm phases joined
+# it.  Their rays/s stand beside the 4-spp scenes' (a path's rays/s
+# hardly depends on the count); their kernels an iteration halve.
+FEATURE_SPP = 2
 # The profiler ranges whose device time _trace_sums attributes: the
 # two-level intersect's stages, the texture lookups, the env-map branches,
 # the hair model and the BSSRDF transport (these nest: sss.probe inside
@@ -828,7 +860,7 @@ def phase_textured_terrain(card, plain, plain_s):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         text = textured_terrain_text(
-            tmp, width=WIDTH, height=HEIGHT, spp=TERRAIN_SPP, iterations=1,
+            tmp, width=WIDTH, height=HEIGHT, spp=FEATURE_SPP, iterations=1,
             maxdepth=TERRAIN_MAXDEPTH, denoise=True, seed=SEED)
         path = os.path.join(tmp, "textured-terrain.pbrt")
         with open(path, "w") as f:
@@ -874,7 +906,7 @@ def phase_textured_terrain(card, plain, plain_s):
           f"{list(tex.kinds_static)}, atlas {atlas_mb:.1f} MB, env map "
           f"{env_mb:.1f} MB, CDF + pdf {cdf_mb:.1f} MB; assets written in "
           f"{assets_s:.1f} s, setup {setup_s:.1f} s; {WIDTH}x{HEIGHT} spp "
-          f"{TERRAIN_SPP} maxdepth {TERRAIN_MAXDEPTH}: {rays:.0f} rays in "
+          f"{FEATURE_SPP} maxdepth {TERRAIN_MAXDEPTH}: {rays:.0f} rays in "
           f"{log['render_s']:.3f} s = {rays / log['render_s']:.1f} rays/s "
           f"(untextured terrain in this run: {plain_s:.3f} s), denoise "
           f"{log['denoise_s'] * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} "
@@ -1769,11 +1801,12 @@ def _hair_sss_text(which, width=WIDTH, height=HEIGHT, **kw):
                                              hair_sss_terrain_text)
 
     if which == "staircase":
-        return hair_sss_scene_text(width=width, height=height, spp=SPP,
-                                   iterations=2, maxdepth=MAXDEPTH,
+        return hair_sss_scene_text(width=width, height=height,
+                                   spp=FEATURE_SPP, iterations=2,
+                                   maxdepth=MAXDEPTH,
                                    filterradius=RADIUS, seed=SEED, **kw)
     return hair_sss_terrain_text(width=width, height=height,
-                                 spp=TERRAIN_SPP, iterations=1,
+                                 spp=FEATURE_SPP, iterations=1,
                                  maxdepth=TERRAIN_MAXDEPTH, seed=SEED, **kw)
 
 
@@ -2151,6 +2184,11 @@ def hair_sss_small():
 # volpath with participating media and the Fourier BSDF
 
 VOLPATH_GRID = 128  # the full-width smoke's density grid per side
+# The volpath staircase's samples a pixel: cut from SPP (4) to 1 to keep
+# the whole run inside its time limit once the realistic, kd-tree, ao
+# and sppm phases joined it (its per-sample driver's rays/s does not
+# depend on the count; its kernels an iteration fall to a quarter).
+VOLPATH_SPP = 1
 FOURIER_SHARE = 0.05  # first-hit share that the Fourier materials reach
 VOLPATH_TERRAIN_N = 96  # the two-level volpath terrain's heightfield side
 
@@ -2162,7 +2200,7 @@ def _volpath_text(tmp, width=WIDTH, height=HEIGHT, **kw):
     tmp."""
     from statmc_tpu_torch.testscenes import volpath_scene_text
 
-    kw = {**dict(spp=SPP, iterations=1, maxdepth=MAXDEPTH,
+    kw = {**dict(spp=VOLPATH_SPP, iterations=1, maxdepth=MAXDEPTH,
                  grid=VOLPATH_GRID, filterradius=RADIUS, seed=SEED), **kw}
     return volpath_scene_text(tmp, width=width, height=height, **kw)
 
@@ -2296,7 +2334,7 @@ def phase_volpath(card, plain_s, plain_rays):
     log = logs[-1]
     rate = log["rays_total"] / log["render_s"]
     plain = plain_rays / plain_s
-    print(f"volpath: {s.bvh.n_tris} tris, {WIDTH}x{HEIGHT}, {SPP} spp, "
+    print(f"volpath: {s.bvh.n_tris} tris, {WIDTH}x{HEIGHT}, {VOLPATH_SPP} spp, "
           f"maxdepth {MAXDEPTH}, {VOLPATH_GRID}^3 smoke; scene text "
           f"{text_s:.1f} s, setup {setup_s:.1f} s; {log['rays_total']:.0f} "
           f"rays in {log['render_s']:.3f} s = {rate:.1f} rays/s (untextured "
@@ -2313,8 +2351,8 @@ def phase_volpath(card, plain_s, plain_rays):
 
 
 def _one_sample(r):
-    """One sample per pixel of r's iteration 1 (the first quarter of it):
-    the per-sample chunk function on its states, film and counters."""
+    """One sample per pixel from sample 0 through r's chunk function, on
+    its states, film and counters (the kd-tree's profiled sample)."""
     r.film_sum.zero_()
     r.film_w.zero_()
     return r.chunk_fn(r.states, r.film_sum, r.film_w, r.ray_total, r.stats,
@@ -2322,40 +2360,33 @@ def _one_sample(r):
 
 
 def phase_volpath_profile(card, r, render_s, plain):
-    """The volpath iteration once more under torch.profiler, device only
-    (its ~2 million kernels' host trace is too slow to read): kernels,
-    device ms by kernel (B1's and B2's with their launches) and busy
-    share of the unprofiled render_s, beside the untextured staircase's
-    iteration (plain: {kernels, device_ms, busy}); then the first of its
-    SPP samples under the full profiler, for the device ms inside the
-    volume.* and fourier.* ranges, as shares of that sample's device
-    time.  Returns {kernel: device ms of the whole iteration}."""
+    """The volpath iteration (VOLPATH_SPP = 1 sample) once more under
+    torch.profiler, host and device: kernels, device ms by kernel (B1's
+    and B2's with their launches) and busy share of the unprofiled
+    render_s, beside the untextured staircase's iteration (plain:
+    {kernels, device_ms, busy}), and the device ms inside the volume.*
+    and fourier.* ranges as shares of the iteration's device time.
+    Returns {kernel: device ms of the iteration}."""
     import torch
 
-    _, whole, _, _, whole_read = _profile(lambda: r.run_iteration(1),
-                                          host=False)
-    _, groups, launches, stages, read_s = _profile(lambda: _one_sample(r))
-    w_total = sum(ms for ms, _ in whole.values())
-    w_kernels = sum(n for _, n in whole.values())
-    total = sum(ms for ms, _ in groups.values())
-    kernels = sum(n for _, n in groups.values())
+    _, whole, launches, stages, read_s = _profile(lambda: r.run_iteration(1))
+    total = sum(ms for ms, _ in whole.values())
+    kernels = sum(n for _, n in whole.values())
     names = sorted(k for k in stages if k.startswith(("volume.",
                                                       "fourier.")))
-    print(f"volpath profile: the iteration ({SPP} spp, {WIDTH}x{HEIGHT}, "
-          f"device only, trace read in {whole_read:.1f} s): device time "
-          f"{w_total:.1f} ms in {w_kernels} kernels, busy "
-          f"{w_total / 1e3 / render_s:.3f} of the unprofiled "
-          f"{render_s:.3f} s (untextured staircase iteration: "
-          f"{plain['device_ms']:.1f} ms in {plain['kernels']} kernels, busy "
-          f"{plain['busy']:.3f}); " + ", ".join(
+    print(f"volpath profile: the iteration ({VOLPATH_SPP} spp, {WIDTH}x"
+          f"{HEIGHT}, host and device, trace read in {read_s:.1f} s): "
+          f"device time {total:.1f} ms in {kernels} kernels ({launches} "
+          f"launched through the runtime), busy {total / 1e3 / render_s:.3f}"
+          f" of the unprofiled {render_s:.3f} s (untextured staircase "
+          f"iteration: {plain['device_ms']:.1f} ms in {plain['kernels']} "
+          f"kernels, busy {plain['busy']:.3f}); " + ", ".join(
               f"{g} {ms:.1f} ms ({n})" for g, (ms, n) in whole.items() if n)
-          + f"; its first sample (host and device, trace read in "
-          f"{read_s:.1f} s): {total:.1f} ms in {kernels} kernels ({launches} "
-          f"launched through the runtime); "
-          + ", ".join(f"{k} {stages[k][0]} calls, {stages[k][2]:.1f} ms "
-                      f"device ({stages[k][2] / max(total, 1e-9):.3f} of the "
-                      f"sample's) / {stages[k][1]:.1f} ms host"
-                      for k in names) + f" [{card}]", flush=True)
+          + "; " + ", ".join(
+              f"{k} {stages[k][0]} calls, {stages[k][2]:.1f} ms device "
+              f"({stages[k][2] / max(total, 1e-9):.3f} of the iteration's) "
+              f"/ {stages[k][1]:.1f} ms host" for k in names)
+          + f" [{card}]", flush=True)
     if whole["B1"][1] <= 0 or whole["B2"][1] <= 0 or not any(
             stages[k][2] > 0 for k in names if k.startswith("volume.")) \
             or not any(stages[k][2] > 0 for k in names
@@ -2509,6 +2540,349 @@ def phase_volpath_twolevel(card):
     return launches, {k: groups[k][0] for k in ("B3", "B4")}
 
 
+# ---------------------------------------------------------------------------
+# The realistic camera, the kd-tree and the ao / sppm integrators.
+
+LENS = os.path.join(REPO, "tests", "fixtures", "biconvex.dat")
+AO_SAMPLES = 64  # occlusion probes a camera sample (the JAX default)
+AO_TERRAIN_SPP = 1
+SPPM_MAXDEPTH, SPPM_RADIUS = 5, 0.05
+# The small card-against-CPU sppm staircase: one photon a pixel is 4,096
+# photons at 32x24, so its radius is wider to gather some.
+SPPM_SMALL_RADIUS = 0.3
+
+
+def _new_path(card, name, text, need=(), never=(), iterations=None):
+    """load(text).render() on the card with every launch count set to 0
+    just before the render and read just after: the kernels in `need`
+    must launch, those in `never` must not; every buffer finite and the
+    film's mean > 0.  Returns (renderer, logs, launches, setup s, peak
+    device memory in GiB)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.driver import load
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, f"{name}.pbrt", text)
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    r.progress = False
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    logs = r.render(iterations=iterations, verbose=False)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    bufs = r.buffers()
+    bad = [k for k, v in bufs.items() if not np.isfinite(v).all()]
+    if bad or bufs["film"].mean() <= 0:
+        raise AssertionError(f"{name}: buffers not finite {bad}, or film "
+                             "mean not > 0")
+    if any(launches[k] <= 0 for k in need) or any(launches[k] for k in never):
+        raise AssertionError(f"{name}: launches {launches}, must launch "
+                             f"{need}, must not launch {never}")
+    return r, logs, launches, setup_s, peak
+
+
+def _device_profile(fn):
+    """fn() under torch.profiler, device only: (kernels, device ms,
+    {B1..B4: device ms}, s to read the trace)."""
+    _, groups, _, _, read_s = _profile(fn, host=False)
+    return (sum(n for _, n in groups.values()),
+            sum(ms for ms, _ in groups.values()),
+            {k: groups[k][0] for k in KERNEL_NAMES if groups[k][1]}, read_s)
+
+
+def _rate_text(log, rays, plain, what):
+    rate = rays / log["render_s"]
+    return rate, (f"{rays:.0f} rays in {log['render_s']:.3f} s = {rate:.1f} "
+                  f"rays/s ({what} in this run: {plain:.1f} rays/s, ratio "
+                  f"{rate / plain:.3f})")
+
+
+def phase_realistic(card, plain_s, plain_rays):
+    """The staircase through Camera "realistic" (tests/fixtures/
+    biconvex.dat, focused on the stairs) at the main path's settings (4
+    spp, 2 iterations, maxdepth 8, denoised): B1 and B2 launch; the share
+    of camera rays the lens lets through; rays/s beside the staircase's;
+    (phase_new_profiles profiles iteration 2.)  Returns (renderer,
+    launches, render s, rays/s, alive share)."""
+    import torch
+
+    from statmc_tpu_torch.core import rng as crng
+    from statmc_tpu_torch.render import camera as CAM
+    from statmc_tpu_torch.testscenes import realistic_scene_text
+
+    r, logs, launches, setup_s, peak = _new_path(
+        card, "realistic", realistic_scene_text(
+            LENS, width=WIDTH, height=HEIGHT, spp=SPP, iterations=2,
+            maxdepth=MAXDEPTH, denoise=True, filterradius=RADIUS),
+        need=("B1", "B2"))
+    s = r.s
+    if s.cam.lens is None or not r.chunk_fn.__qualname__.startswith(
+            "make_chunk_fn"):
+        raise AssertionError("realistic: no lens, or not the per-sample "
+                             "driver")
+    # The camera rays of sample 0, with the render's own draws.
+    ids = torch.arange(r.P, dtype=torch.int32, device="cuda")
+    keys = crng.pixel_keys(r.base_key, ids, 0)
+    pxy = torch.stack([(ids % s.width).float(), (ids // s.width).float()],
+                      -1)
+    _, _, w = CAM.generate_rays_weighted(
+        s.cam, pxy + crng.uniform_2d(keys, 0, crng.SLOT_CAMERA),
+        crng.uniform_2d(keys, 0, crng.SLOT_LENS))
+    alive = float((w > 0).float().mean())
+    if not 0.05 < alive <= 1.0:
+        raise AssertionError(f"realistic: alive share {alive}")
+    log = logs[-1]
+    rays = log["rays_total"] - logs[0]["rays_total"]
+    rate, text = _rate_text(log, rays, plain_rays / plain_s,
+                            "staircase iteration 2")
+    print(f"realistic: {s.width}x{s.height}, {SPP} spp, 2 iterations, "
+          f"maxdepth {MAXDEPTH}, lens {os.path.basename(LENS)} (rear z "
+          f"{s.cam.lens.rear_z:.5f} m after focus); setup {setup_s:.1f} s "
+          f"(lens system and pupil bounds included); iteration 2: {text}; "
+          f"camera rays alive {alive:.4f}; peak memory {peak:.2f} GiB; film "
+          f"mean {r.buffers()['film'].mean():.5f}; launches {launches} "
+          f"[{card}]", flush=True)
+    return r, launches, log["render_s"], rate, alive
+
+
+def phase_kdtree(card, plain_s, plain_rays):
+    """The staircase under `Accelerator "kdtree"` (4 spp, 1 iteration,
+    maxdepth 8, denoised): B2 launches and B1 never; the SAH build's
+    seconds, nodes, depth and widest leaf; the walk's steps a call
+    (mean, max) against its cap and lane-steps a ray (kdtree.walk_stats);
+    rays/s beside the staircase's.  Returns (renderer, launches, render
+    s, rays/s, walk summary)."""
+    from statmc_tpu_torch.accel import kdtree as KD
+    from statmc_tpu_torch.testscenes import kdtree_scene_text
+
+    build = {}
+    real_build = KD.build_kdtree
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        out = real_build(*a, **k)
+        build["s"] = time.perf_counter() - t0
+        return out
+
+    walks = []
+    with _patched((KD, "build_kdtree", timed_build), (KD, "walk_stats",
+                                                      walks)):
+        r, logs, launches, setup_s, peak = _new_path(
+            card, "kdtree", kdtree_scene_text(
+                width=WIDTH, height=HEIGHT, spp=SPP, iterations=1,
+                maxdepth=MAXDEPTH, denoise=True, filterradius=RADIUS),
+            need=("B2",), never=("B1",))
+    kd = r.s.bvh
+    if not isinstance(kd, KD.KdTreeTris) or not walks:
+        raise AssertionError("kdtree: not the kd walk")
+    steps = [w["steps"] for w in walks]
+    walk = {"calls": len(walks), "mean_steps": sum(steps) / len(steps),
+            "max_steps": max(steps), "cap": walks[0]["cap"],
+            "lane_steps_per_ray": sum(w["lane_steps"] for w in walks)
+            / max(sum(w["rays"] for w in walks), 1),
+            "build_s": build["s"], "nodes": kd.n_nodes, "depth": kd.depth(),
+            "max_leaf": kd.max_leaf}
+    if walk["max_steps"] >= walk["cap"]:
+        raise AssertionError(f"kdtree: a walk reached its cap {walk}")
+    log = logs[-1]
+    rate, text = _rate_text(log, log["rays_total"], plain_rays / plain_s,
+                            "staircase iteration 2")
+    print(f"kdtree: {kd.tri_p0.shape[0]} tris, SAH build {build['s']:.1f} s "
+          f"({kd.n_nodes} nodes, depth {walk['depth']}, widest leaf "
+          f"{kd.max_leaf}), setup {setup_s:.1f} s; {WIDTH}x{HEIGHT}, {SPP} "
+          f"spp, maxdepth {MAXDEPTH}: {text}; denoise "
+          f"{log['denoise_s'] * 1e3:.1f} ms; walk: {len(walks)} calls, "
+          f"{walk['mean_steps']:.1f} steps a call on average, "
+          f"{walk['max_steps']} at most, cap {walk['cap']}, "
+          f"{walk['lane_steps_per_ray']:.2f} steps a ray; peak memory "
+          f"{peak:.2f} GiB; film mean {r.buffers()['film'].mean():.5f}; "
+          f"launches {launches} [{card}]", flush=True)
+    return r, launches, log["render_s"], rate, walk
+
+
+def phase_ao(card, which, plain_s, plain_rays):
+    """Integrator "ao" (64 cosine probes a camera sample) on the
+    staircase (4 spp; B1 launches) or the terrain (1 spp; B3 and B4
+    launch): rays/s beside the statpath scene's.  Returns (renderer,
+    launches, render s, rays/s)."""
+    from statmc_tpu_torch.testscenes import ao_scene_text
+
+    terrain = which == "terrain"
+    spp = AO_TERRAIN_SPP if terrain else SPP
+    r, logs, launches, setup_s, peak = _new_path(
+        card, f"ao-{which}", ao_scene_text(
+            nsamples=AO_SAMPLES, cossample=True, terrain=terrain,
+            width=WIDTH, height=HEIGHT, spp=spp),
+        need=("B3", "B4") if terrain else ("B1",))
+    log = logs[-1]
+    rate, text = _rate_text(log, log["rays_total"], plain_rays / plain_s,
+                            f"statpath {which}")
+    film = r.buffers()["film"]
+    print(f"ao {which}: {WIDTH}x{HEIGHT}, {spp} spp x {AO_SAMPLES} cosine "
+          f"probes, setup {setup_s:.1f} s; {text}; peak memory {peak:.2f} "
+          f"GiB; film mean {film.mean():.5f}; launches {launches} [{card}]",
+          flush=True)
+    return r, launches, log["render_s"], rate
+
+
+def _sppm_pass(r, i):
+    """Pass i of r with the deposit's records and the visible points
+    counted: (log, per-deposit stats, visible points)."""
+    from statmc_tpu_torch.render import sppm as SP
+
+    deps, vps = [], []
+    real = SP.SPPMRenderer.camera_pass
+
+    def counted(self, key):
+        c = real(self, key)
+        vps.append(int(c["have"].sum()))
+        return c
+
+    with _patched((SP, "deposit_stats", deps),
+                  (SP.SPPMRenderer, "camera_pass", counted)):
+        log = r.run_iteration(i)
+    return log, deps, vps[0]
+
+
+def phase_sppm(card, plain_s, plain_rays):
+    """Integrator "sppm" on the staircase: maxdepth 5, one photon a pixel
+    (921,600 a pass), radius 0.05, 2 passes; B1 launches.  Per pass the
+    candidate pairs the grid tested and the pairs it kept, photons per
+    visible point, the radius's shrink, and pass 1 run twice (a second
+    renderer) equal bit for bit; rays/s (the JAX package's count:
+    photons x maxdepth + 2 P a pass) beside the staircase's.  Returns
+    (renderer, launches, pass 2's render s, rays/s, summary)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import sppm_scene_text
+
+    text = sppm_scene_text(maxdepth=SPPM_MAXDEPTH, radius=SPPM_RADIUS,
+                           iterations=2, width=WIDTH, height=HEIGHT, spp=1,
+                           denoise=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "sppm.pbrt", text)
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        twin = load(path, device="cuda")
+        setup_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    passes = []
+    r0 = float(r.radius.mean())
+    for i in (1, 2):
+        log, deps, n_vp = _sppm_pass(r, i)
+        passes.append({
+            "render_s": log["render_s"], "visible_points": n_vp,
+            "vertices": sum(d["vertices"] for d in deps),
+            "tested": sum(d["tested"] for d in deps),
+            "kept": sum(d["kept"] for d in deps),
+            "mean_radius": float(r.radius.mean())})
+        if i == 1:
+            state1 = [x.clone() for x in (r.radius, r.n_acc, r.tau, r.Ld)]
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    twin.run_iteration(1)
+    same = all(torch.equal(a, b) for a, b in zip(
+        state1, (twin.radius, twin.n_acc, twin.tau, twin.Ld)))
+    film = r.buffers()["film"]
+    if not (np.isfinite(film).all() and film.mean() > 0) or not same \
+            or launches["B1"] <= 0 or passes[0]["kept"] <= 0:
+        raise AssertionError(f"sppm: film mean {film.mean()}, pass 1 twice "
+                             f"bit for bit {same}, launches {launches}, "
+                             f"passes {passes}")
+    for p in passes:
+        p["photons_per_vp"] = p["kept"] / max(p["visible_points"], 1)
+    rays = r.n_photons * SPPM_MAXDEPTH + 2 * r.P
+    rate, rtext = _rate_text({"render_s": passes[1]["render_s"]}, rays,
+                             plain_rays / plain_s, "staircase iteration 2")
+    summary = {"passes": passes, "radius_0": r0,
+               "shrink": passes[1]["mean_radius"] / passes[0]["mean_radius"],
+               "bitwise": same}
+    print(f"sppm: {WIDTH}x{HEIGHT}, {r.n_photons} photons a pass, maxdepth "
+          f"{SPPM_MAXDEPTH}, radius {SPPM_RADIUS}, setup {setup_s:.1f} s; "
+          + "; ".join(
+              f"pass {i + 1}: {p['render_s']:.3f} s, {p['visible_points']} "
+              f"visible points, {p['vertices']} photon vertices deposited, "
+              f"{p['tested']} pairs tested, {p['kept']} kept, "
+              f"{p['photons_per_vp']:.2f} photons a visible point, mean "
+              f"radius {p['mean_radius']:.5f}" for i, p in enumerate(passes))
+          + f"; radius shrink pass 1 -> 2 {summary['shrink']:.4f}; pass 1 "
+          f"twice bit for bit {same}; pass 2: {rtext} (nominal rays); peak "
+          f"memory {peak:.2f} GiB; film mean {film.mean():.5f}; launches "
+          f"{launches} [{card}]", flush=True)
+    del twin
+    return r, launches, passes[1]["render_s"], rate, summary
+
+
+def phase_new_profiles(card, runs):
+    """Each of runs {name: (renderer, iteration, its unprofiled render
+    s)} rendered once more under torch.profiler, device only (after every
+    unprofiled render of these paths): kernels, device ms, busy share and
+    B1-B4's ms.  Iteration None profiles one sample of iteration 1 (the
+    kd-tree's ~4 million kernels an iteration take ~5 minutes under the
+    profiler), beside a quarter of its render s.  Returns {name:
+    {kernel: ms}}."""
+    import torch
+
+    out = {}
+    for name, (r, i, render_s) in runs.items():
+        if i is None:  # one sample of the iteration (the kd-tree's)
+            what, fn = f"1 of {r.s.ecfg.pixel_samples} samples", _one_sample
+            render_s /= r.s.ecfg.pixel_samples
+        else:
+            what, fn = f"iteration {i}", lambda r: r.run_iteration(i)
+        kernels, dev_ms, ms, read_s = _device_profile(lambda: fn(r))
+        print(f"{name} profile: {what} (device only, read in "
+              f"{read_s:.1f} s): {kernels} kernels, {dev_ms:.1f} ms, busy "
+              f"{dev_ms / 1e3 / render_s:.3f} of the unprofiled "
+              f"{render_s:.3f} s, " + ", ".join(
+                  f"{k} {v:.1f} ms" for k, v in ms.items()) + f" [{card}]",
+              flush=True)
+        out[name] = dict(ms, kernels=kernels)
+        torch.cuda.synchronize()
+    return out
+
+
+def realistic_small():
+    from statmc_tpu_torch.testscenes import realistic_scene_text
+
+    return realistic_scene_text(LENS, width=SMALL_W, height=SMALL_H, spp=2,
+                                iterations=2, maxdepth=4, filterradius=2)
+
+
+def kdtree_small():
+    from statmc_tpu_torch.testscenes import kdtree_scene_text
+
+    return kdtree_scene_text(width=SMALL_W, height=SMALL_H, spp=2,
+                             iterations=2, maxdepth=4, filterradius=2)
+
+
+def ao_small():
+    from statmc_tpu_torch.testscenes import ao_scene_text
+
+    return ao_scene_text(nsamples=16, width=SMALL_W, height=SMALL_H, spp=2,
+                         iterations=2)
+
+
+def sppm_small():
+    from statmc_tpu_torch.testscenes import sppm_scene_text
+
+    return sppm_scene_text(maxdepth=SPPM_MAXDEPTH, radius=SPPM_SMALL_RADIUS,
+                           iterations=2, width=SMALL_W, height=SMALL_H,
+                           spp=1, denoise=False)
+
+
 def _print_build(cuda_build):
     """What the compiler and the runtime report for kernels B1 and B4:
     ptxas -v (registers, spills, shared memory; only when this process
@@ -2520,6 +2894,57 @@ def _print_build(cuda_build):
         blocks, regs = cuda_build.occupancy(kernel)
         print(f"occupancy {kernel}: {regs} registers a thread, {blocks} "
               f"blocks of 128 threads resident per SM", flush=True)
+
+
+# The iteration each new path profiles: the realistic staircase's second,
+# sppm's third pass (after the two measured), one sample of the kd-tree's.
+_PROFILED = {"realistic": 2, "kdtree": None, "ao_staircase": 1,
+             "ao_terrain": 1, "sppm": 3}
+
+
+def _new_paths(card, phase, stair_s, stair_rays, terrain_s, terrain_rays):
+    """The renders of the realistic camera, the kd-tree, ao (staircase and
+    terrain) and sppm at full width, unprofiled.  Returns {name: result
+    tuple} (each begins with its renderer)."""
+    return {
+        "realistic": phase("realistic", phase_realistic, card, stair_s,
+                           stair_rays),
+        "kdtree": phase("kdtree", phase_kdtree, card, stair_s, stair_rays),
+        "ao_staircase": phase("ao staircase", phase_ao, card, "staircase",
+                              stair_s, stair_rays),
+        "ao_terrain": phase("ao terrain", phase_ao, card, "terrain",
+                            terrain_s, terrain_rays),
+        "sppm": phase("sppm", phase_sppm, card, stair_s, stair_rays)}
+
+
+def _new_smalls(card, phase):
+    """The four small card-against-CPU renders of the new paths."""
+    phase("realistic small", phase_small_reference, card, "realistic",
+          realistic_small(), SMALL_SHARE, 0.0, ("B1", "B2"))
+    phase("kdtree small", phase_small_reference, card, "kdtree",
+          kdtree_small(), SMALL_SHARE, 0.0, ("B2",))
+    phase("ao small", phase_small_reference, card, "ao", ao_small(),
+          SMALL_SHARE, 0.0, ("B1",))
+    phase("sppm small", phase_small_reference, card, "sppm", sppm_small(),
+          SMALL_SHARE, 0.0, ("B1",))
+
+
+def _new_results(new, new_ms):
+    """The new paths' entries of the workflow line, and per kernel its
+    launches and profiled ms on each new path."""
+    workflow = {f"{k}_rays_per_s": v[3] for k, v in new.items()}
+    workflow.update({"realistic_alive_share": new["realistic"][4],
+                     "kdtree_walk": new["kdtree"][4],
+                     "sppm": new["sppm"][4],
+                     "new_kernels_profiled": {
+                         k if _PROFILED[k] else f"{k}_one_sample":
+                         v["kernels"] for k, v in new_ms.items()}})
+    per_kernel = {b: {} for b in KERNEL_NAMES}
+    for name, v in new.items():
+        for b in KERNEL_NAMES:
+            per_kernel[b][f"{name}_launches"] = v[1][b]
+            per_kernel[b][f"{name}_main_path_ms"] = new_ms[name].get(b)
+    return workflow, per_kernel
 
 
 def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
@@ -2596,6 +3021,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                           ht)
     walk_checked = phase("volpath walk calls", phase_volpath_walk_calls, card,
                          vp)
+    new = _new_paths(card, phase, stair_s, stair_rays, render_s,
+                     terrain_rays)
     path_ms, stair_whole = phase("staircase profile", phase_staircase_profile,
                                  card, rs, stair_s)
     del rs
@@ -2614,6 +3041,10 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     vp_ms = phase("volpath profile", phase_volpath_profile, card, vp,
                   vp_log["render_s"], stair_whole)
     del vp
+    new_ms = phase("new paths profile", phase_new_profiles, card,
+                   {k: (v[0], _PROFILED[k], v[2])
+                    for k, v in new.items()})
+    new = {k: (None, *v[1:]) for k, v in new.items()}  # the renderers go
     phase("B3 main-path rays", phase_b3_main_rays, card, r.s.bvh.bounds,
           cull_calls, other)
     del cull_calls
@@ -2630,8 +3061,10 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                                card)
     phase("volpath small", phase_small_reference, card, "volpath staircase",
           volpath_small, SMALL_SHARE, 1e-3, ("B1", "B2"))
+    _new_smalls(card, phase)
     cli = phase("CLI", phase_cli, card)
     cam = b34["camera"]
+    new_workflow, new_kernels = _new_results(new, new_ms)
     kernels = [
         {"name": "B1 fused_intersect", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/fused_intersect.cu",
@@ -2705,6 +3138,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                   "volpath_main_path_ms": vp_ms.get(b),
                   "volpath_terrain_launches": vt_launches[b],
                   "volpath_terrain_main_path_ms": vt_ms.get(b)})
+        k.update(new_kernels[b])
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,
@@ -2719,7 +3153,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
         "sss_probe_calls_checked": probe_checked,
         "volpath_render_s": vp_log["render_s"],
         "volpath_rays_per_s": vp_rate,
-        "volpath_walk_calls_checked": walk_checked}}))
+        "volpath_walk_calls_checked": walk_checked, **new_workflow}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

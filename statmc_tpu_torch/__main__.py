@@ -53,10 +53,10 @@ def main(argv=None):
                     help="render on the card (default) or on the CPU")
     args = ap.parse_args(argv)
 
-    from .driver import _ITEM_REST, _unported, load
+    from .driver import _ITEM_MESH, _unported, load
 
     if args.mesh:
-        raise _unported("multi-device rendering (--mesh)", _ITEM_REST)
+        raise _unported("multi-device rendering (--mesh)", _ITEM_MESH)
     r = load(args.scene, base_seed=args.baseseed, device=args.device,
              strict_assets=True if args.strictassets else None)
     tev = None

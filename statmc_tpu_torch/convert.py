@@ -8,9 +8,11 @@ import numpy as np
 import torch
 
 from .accel.fused import FusedTris
+from .accel.kdtree import KdTreeTris
 from .accel.twolevel import TwoLevelTris
 from .render.fourier import FourierTables
 from .render.lightdistrib import LightDistribution
+from .render.realistic import LensSystem
 from .render.sss import SSSTables
 from .scene.build import SceneTables
 from .scene.textures import TextureTable
@@ -59,6 +61,22 @@ def twolevel_tris(tl, device="cpu") -> TwoLevelTris:
         world_ext=np.asarray(tl.world_ext)).to_device(device)
 
 
+def kdtree_tris(kd, device="cpu") -> KdTreeTris:
+    """A JAX-package KdTreeTris -> the port's KdTreeTris on `device`."""
+    return KdTreeTris(*[x if isinstance(x, int) else np.array(x)
+                        for x in kd]).to_device(device)
+
+
+def lens_system(lens, device="cpu") -> LensSystem:
+    """A JAX-package LensSystem -> the port's (its prescription stays a
+    tuple of Python floats; the pupil bounds and film extent become
+    tensors on `device`)."""
+    return lens._replace(
+        pupil_bounds=torch.tensor(np.asarray(lens.pupil_bounds),
+                                  device=device),
+        film_ext=torch.tensor(np.asarray(lens.film_ext), device=device))
+
+
 def light_distribution(dist, device="cpu") -> LightDistribution:
     """A JAX-package LightDistribution -> the port's on `device`."""
     return LightDistribution(
@@ -100,3 +118,24 @@ def renderer_state(jr, tr) -> None:
         setattr(tr, name, t(getattr(jr, name))[:P])
     tr.ray_total = t(jr.ray_total)
     tr.stats = {k: t(v) for k, v in jr.stats.items()}
+
+
+# The estimator state of each alternative integrator (render/ao.py,
+# render/sppm.py): tensors, then Python numbers.
+_ALT_STATE = {"AORenderer": (("film_sum",), ("n_cam",)),
+              "SPPMRenderer": (("radius", "n_acc", "tau", "Ld"),
+                               ("n_iters", "total_photons"))}
+
+
+def alt_renderer_state(jr, tr) -> None:
+    """Carry a JAX-package AO or SPPM renderer's state into the port's
+    renderer `tr` of the same kind and scene (SPPM: radius, n_acc, tau, Ld,
+    n_iters, total_photons; AO: film_sum, n_cam) and its ray total, so
+    `tr` renders the next iteration from where `jr` stopped."""
+    tensors, numbers = _ALT_STATE[type(tr).__name__]
+    for name in tensors:
+        setattr(tr, name, torch.as_tensor(np.array(getattr(jr, name)),
+                                          device=tr.device))
+    for name in numbers:
+        setattr(tr, name, int(getattr(jr, name)))
+    tr.ray_total = torch.as_tensor(np.array(jr.ray_total), device=tr.device)

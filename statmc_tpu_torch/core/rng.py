@@ -38,11 +38,16 @@ N_SLOTS = 8  # draw sites per bounce
 # threefry uniforms (uniform_1d/2d) in every sampler mode, LD modes
 # included, and stay out of the LD and lockstep slot maps, as in the JAX
 # package: delta and ratio tracking consume a variable number of draws.
-# Slot 12 is the JAX package's lens slot (realistic camera), not ported.
 SLOT_MEDIUM = 8  # 2D: channel select + distance (homogeneous.cpp:55-58)
 SLOT_PHASE = 9  # 2D Henyey-Greenstein continuation direction
 SLOT_PHASE_NEE = 10  # 2D phase half of EstimateDirect at a medium vertex
 SLOT_TR = 11  # tracking-loop draws (the iteration index folded in)
+# 2D exit-pupil sample (realistic camera).  Unlike the media and BSSRDF
+# slots it follows the sampler mode (draw_2d), so the LD modes address it
+# through N_SLOTS as the JAX package does; the lockstep table has no
+# entry for it, and lockstep with a realistic camera raises KeyError
+# there, as it does in the JAX package.
+SLOT_LENS = 12
 # BSSRDF draw sites (render/sss.py; statpath.cpp:892-926).  Like the
 # media slots they always draw threefry uniforms and stay out of the LD
 # and lockstep slot maps, as in the JAX package.

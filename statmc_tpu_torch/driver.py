@@ -12,7 +12,9 @@ Entry points: ``load(path, device=...).render(iterations=...)`` and the
 command line, ``python -m statmc_tpu_torch`` (__main__.py).  Path
 regeneration (make_regen_chunk_fn) renders every sampler mode but the
 lockstep table, which pins the per-sample driver (make_chunk_fn), as
-volpath scenes with media do;
+volpath scenes with media and realistic cameras do; ``ao`` and ``sppm``
+have their own drivers behind ``render/alt_integrators.py``, which
+``load`` dispatches to;
 ``Renderer.render_lockstep_exact`` replays the reference's own draw
 streams; ``denoise_from_disk`` re-filters a written PFM set; and
 ``save_checkpoint``/``restore_checkpoint`` resume a render bit for bit.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from .accel.fused import FUSED_MAX_TRIS, FusedTris
+from .accel.kdtree import KdTreeTris
 from .accel.twolevel import TwoLevelTris
 from .core import rng as crng
 from .core import spectrum as spec
@@ -48,14 +51,15 @@ from .stats import moments
 # size changes memory use and launch counts, never results.
 PIXEL_BLOCK = 1 << 20
 
-# The port queue item in ROADMAP.md that the NotImplementedError gates name.
-_ITEM_REST = "Rest of slice 4"
+# The port queue items in ROADMAP.md that the NotImplementedError gates name.
+_ITEM_BDPT = "BDPT and MLT"
+_ITEM_MESH = "Multi-GPU"
 
 
 @dataclass
 class RenderSetup:
     scene: SceneTables  # tensors on `device`
-    bvh: Any  # FusedTris / TwoLevelTris (tensors), None without triangles
+    bvh: Any  # FusedTris / TwoLevelTris / KdTreeTris, None without triangles
     dist: Any  # LightDistribution
     cam: CAM.CameraParams
     icfg: IntegratorConfig
@@ -79,12 +83,8 @@ def _unported(feature: str, item: str) -> NotImplementedError:
 def _check_supported(desc: SceneDescription) -> None:
     """Refuse every scene feature the port does not render yet, so it
     never silently renders something else."""
-    if desc.integrator_name in ("bdpt", "mlt", "sppm", "ao"):
-        raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_REST)
-    if getattr(desc, "accelerator_name", "bvh") == "kdtree":
-        raise _unported('Accelerator "kdtree"', _ITEM_REST)
-    if desc.camera_name == "realistic":
-        raise _unported('Camera "realistic"', _ITEM_REST)
+    if desc.integrator_name in ("bdpt", "mlt"):
+        raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_BDPT)
 
 
 def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
@@ -159,6 +159,8 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
     elif desc.camera_name == "environment":
         cam = CAM.make_environment(desc.camera_to_world, width, height,
                                    device=device)
+    elif desc.camera_name == "realistic":
+        cam = _realistic_camera(desc, width, height, device)
     else:
         fov = float(desc.camera_params.find_one("fov", 90.0))
         cam = CAM.make_perspective(desc.camera_to_world, fov, width, height,
@@ -208,11 +210,15 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
             device=device)
 
     # Up to FUSED_MAX_TRIS the fused table (kernel B1); above it the
-    # two-level traversal (kernels B3 and B4), as statmc_tpu/driver.py
+    # two-level traversal (kernels B3 and B4); under `Accelerator
+    # "kdtree"` the kd-restart walk (no kernel), as statmc_tpu/driver.py
     # chooses.  The scene is Morton-ordered already, so perm is None.
     bvh = None
     if n_tris > 0:
-        acc = FusedTris if n_tris <= FUSED_MAX_TRIS else TwoLevelTris
+        if getattr(desc, "accelerator_name", "bvh") == "kdtree":
+            acc = KdTreeTris
+        else:
+            acc = FusedTris if n_tris <= FUSED_MAX_TRIS else TwoLevelTris
         bvh = acc.from_tris(scene_np.tri_p0, scene_np.tri_e1,
                             scene_np.tri_e2).to_device(device)
     dist = make_distribution(scene_np, ecfg.light_strategy, device=device)
@@ -246,6 +252,26 @@ def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
         lockstep_tab=lockstep_tab)
 
 
+def _realistic_camera(desc: SceneDescription, width: int, height: int,
+                      device) -> CAM.CameraParams:
+    """Camera "realistic" (src/cameras/realistic.cpp): the lens file is
+    read relative to the scene's directory (statmc_tpu/driver.py:137-156)."""
+    lf = str(desc.camera_params.find_one("lensfile", ""))
+    if not lf:
+        raise ValueError('Camera "realistic" requires "lensfile"')
+    if not os.path.isabs(lf):
+        lf = os.path.join(desc.cwd, lf)
+    rows = []
+    with open(lf) as f:
+        for line in f:
+            rows.extend(float(tok) for tok in line.split("#", 1)[0].split())
+    return CAM.make_realistic(
+        desc.camera_to_world, np.asarray(rows, np.float64), width, height,
+        float(desc.camera_params.find_one("aperturediameter", 1.0)),
+        float(desc.camera_params.find_one("focusdistance", 10.0)),
+        float(desc.film_params.find_one("diagonal", 35.0)), device=device)
+
+
 def zero_stats(device) -> dict:
     return {k: torch.zeros((), device=device)
             for k in ("n_camera_rays", "zero_paths", "total_paths",
@@ -273,7 +299,8 @@ def make_chunk_fn(setup: RenderSetup):
     signature and results as make_regen_chunk_fn; the lockstep sampler
     pins it, since its table is addressed by sample, and so do volpath
     scenes with media, whose bounce loop (render/volume.py) it calls in
-    place of ``integrator.trace``."""
+    place of ``integrator.trace``, and realistic cameras, whose per-ray
+    weight scales every statistic of the sample."""
     icfg, ecfg, cam = setup.icfg, setup.ecfg, setup.cam
     W, P = setup.width, setup.width * setup.height
     dev = setup.device
@@ -300,11 +327,20 @@ def make_chunk_fn(setup: RenderSetup):
                 u_cam = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_CAMERA)
                 pxy = torch.stack([(ids % W).to(torch.float32),
                                    (ids // W).to(torch.float32)], dim=-1)
-                o, d = CAM.generate_rays(cam, pxy + u_cam)
+                if cam.lens is not None:
+                    # Realistic camera: pupil sample + per-ray We weight
+                    # (realistic.cpp:GenerateRay), folded into ls.
+                    u_lens = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_LENS)
+                    o, d, cam_w = CAM.generate_rays_weighted(
+                        cam, pxy + u_cam, u_lens)
+                else:
+                    o, d = CAM.generate_rays(cam, pxy + u_cam)
                 out = trace_fn(setup.scene, setup.bvh, setup.dist, icfg, o, d,
                             keys, avg_ls[start:end], win_b[start:end],
                             win_l[start:end], feedback_on,
                             albedo_luts=setup.albedo_luts, ld_stream=ld)
+                if cam.lens is not None:
+                    out = out._replace(ls=out.ls * cam_w[:, None, None])
                 L = out.ls[:, 0, :]
                 _count_stats(stats_acc, out,
                              torch.ones((end - start,), device=dev))
@@ -388,12 +424,14 @@ class Renderer:
     def __init__(self, setup: RenderSetup):
         self.s = setup
         self.device = setup.device
-        # Path regeneration is the product path; the lockstep table and
-        # volpath with media pin the per-sample driver
-        # (statmc_tpu/driver.py:733-744).
+        # Path regeneration is the product path; the lockstep table,
+        # volpath with media and realistic cameras (whose per-ray weight
+        # the regeneration carry does not thread) pin the per-sample
+        # driver (statmc_tpu/driver.py:733-744).
         self.chunk_fn = (make_chunk_fn(setup)
                          if (setup.icfg.sampler_mode == crng.MODE_LOCKSTEP
-                             or setup.icfg.volumetric)
+                             or setup.icfg.volumetric
+                             or setup.cam.lens is not None)
                          else make_regen_chunk_fn(setup))
         self.denoiser = (
             StatDenoiser(setup.ecfg, setup.width, setup.height,
@@ -679,8 +717,15 @@ class Renderer:
 def load(scene_path: str, base_seed: int = 0, device="cuda",
          strict_assets: bool | None = None) -> Renderer:
     """Parse a pbrt scene and build its Renderer on `device` (the card by
-    default; "cpu" runs the kernels' plain PyTorch versions).  Scene
-    features the port does not render yet raise NotImplementedError."""
+    default; "cpu" runs the kernels' plain PyTorch versions).  ``ao``
+    and ``sppm`` get their own drivers (render/alt_integrators.py, as
+    statmc_tpu/driver.py:1311-1322 dispatches).  Scene features the port
+    does not render yet raise NotImplementedError."""
     desc = parse_scene(scene_path)
+    if desc.integrator_name in ("ao", "sppm"):
+        from .render.alt_integrators import make_alt_renderer
+
+        return make_alt_renderer(desc.integrator_name, desc, base_seed,
+                                 device=device, strict_assets=strict_assets)
     return Renderer(prepare(desc, base_seed, device=device,
                             strict_assets=strict_assets))

@@ -14,7 +14,13 @@ ops per call inside each ``hair.*`` / ``sss.*`` / ``volume.*`` /
 occluded_scene) and per threefry draw site (uniform_1d / uniform_2d, and
 a tracking iteration's two uniforms), each counted without the ranges
 nested in it.  A volpath step runs on the lanes still active, so its
-count falls as paths end.
+count falls as paths end.  Then the same for the realistic staircase
+(``count.realistic_generate``: one lens-camera generate), the kd-tree
+staircase (``count.kd_walk``: one walk, also divided by its steps), the
+staircase under ao (8 probes; ``count.ao_probe``: one probe) and under
+sppm (4,096 photons, maxdepth 5; ``count.sppm_camera_step`` and
+``count.sppm_photon_step``: one bounce of each pass, the photon step's
+grid deposit included, ``count.sppm_deposit`` apart).
 """
 from __future__ import annotations
 
@@ -25,12 +31,13 @@ import tempfile
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .accel import fused, twolevel
+from .accel import fused, kdtree, twolevel
 from .core import rng
 from .driver import load
-from .render import integrator, intersect, volume
-from .testscenes import (hair_sss_scene_text, media_text, scene_text,
-                         volpath_scene_text)
+from .render import ao, integrator, intersect, realistic, sppm, volume
+from .testscenes import (BICONVEX, ao_scene_text, hair_sss_scene_text,
+                         kdtree_scene_text, media_text, realistic_scene_text,
+                         scene_text, sppm_scene_text, volpath_scene_text)
 
 _PLAIN = "count.plain"  # the intersectors' plain versions: one kernel
 _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
@@ -39,7 +46,17 @@ _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
                               (intersect, "occluded_scene"),
                               (integrator, "intersect_scene"),
                               (integrator, "occluded_scene"),
-                              (volume, "intersect_scene"))}
+                              (volume, "intersect_scene"),
+                              (ao, "intersect_scene"), (ao, "occluded_scene"),
+                              (sppm, "intersect_scene"),
+                              (sppm, "occluded_scene")),
+          "count.realistic_generate": ((realistic,
+                                        "generate_rays_realistic"),),
+          "count.kd_walk": ((intersect, "intersect_kdtree"),),
+          "count.ao_probe": ((ao.AORenderer, "_probe"),),
+          "count.sppm_camera_step": ((sppm.SPPMRenderer, "_camera_step"),),
+          "count.sppm_photon_step": ((sppm.SPPMRenderer, "_photon_step"),),
+          "count.sppm_deposit": ((sppm, "deposit_grid"),)}
 _RANGES = ("hair.", "sss.", "volume.", "fourier.", "count.")
 
 
@@ -130,15 +147,38 @@ def main() -> None:
     kw = dict(width=16, height=12, spp=1, iterations=1, maxdepth=8,
               denoise=False)
     with tempfile.TemporaryDirectory() as tmp:
+        lens = os.path.join(tmp, "biconvex.dat")
+        with open(lens, "w") as f:
+            f.write(BICONVEX)
         scenes = [("staircase", scene_text(**kw)),
                   ("hair + SSS staircase",
                    hair_sss_scene_text(curves=32, **kw)),
-                  *_volpath_texts(tmp, kw)]
+                  *_volpath_texts(tmp, kw),
+                  ("realistic staircase", realistic_scene_text(lens, **kw)),
+                  ("kd-tree staircase", kdtree_scene_text(**kw)),
+                  ("ao staircase", ao_scene_text(
+                      nsamples=8, **{**kw, "maxdepth": 1})),
+                  ("sppm staircase", sppm_scene_text(
+                      photons=4096, **{**kw, "maxdepth": 5,
+                                       "iterations": 1}))]
         for name, text in scenes:
-            steps, per_step, ranges = count(text)
-            print(f"{name}: {steps} bounce steps, {per_step:.0f} ops a step"
-                  + "".join(f"; {k} {c} calls, {o:.0f} ops a call"
-                            for k, (c, o) in ranges.items()), flush=True)
+            kdtree.walk_stats = []
+            try:
+                steps, per_step, ranges = count(text)
+                walks = kdtree.walk_stats
+            finally:
+                kdtree.walk_stats = None
+            line = (f"{name}: {steps} bounce steps, {per_step:.0f} ops a "
+                    "step" if steps else f"{name}: {per_step:.0f} ops")
+            print(line + "".join(f"; {k} {c} calls, {o:.0f} ops a call"
+                                 for k, (c, o) in ranges.items()), flush=True)
+            if walks:
+                n_steps = sum(w["steps"] for w in walks)
+                c, o = ranges["count.kd_walk"]
+                print(f"  kd walk: {len(walks)} calls, {n_steps / len(walks):.0f}"
+                      f" steps a call (max {max(w['steps'] for w in walks)},"
+                      f" cap {walks[0]['cap']}), {o * c / n_steps:.1f} ops a "
+                      "step", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Perspective / orthographic / environment camera rays (port of
-statmc_tpu/render/camera.py).  The raster->camera chain is built on the
-host in numpy exactly as the JAX package builds it; per-ray work runs on
-tensors."""
+"""Perspective / orthographic / environment / realistic camera rays (port
+of statmc_tpu/render/camera.py).  The raster->camera chain is built on
+the host in numpy exactly as the JAX package builds it; per-ray work runs
+on tensors.  The realistic camera traces its lens system
+(render/realistic.py) and weights each ray (generate_rays_weighted)."""
 from __future__ import annotations
 
 import math
@@ -21,6 +22,8 @@ class CameraParams(NamedTuple):
     orthographic: bool
     environment: bool = False
     inv_res: Any = None  # [2] 1/xres, 1/yres (environment mapping)
+    lens: Any = None  # realistic.LensSystem (Camera "realistic") or None
+    res: Any = None  # (xres, yres) Python floats, realistic cameras only
 
 
 def _screen_to_raster(screen, xres, yres):
@@ -123,3 +126,40 @@ def generate_rays(cam: CameraParams, p_film):
     o = cm.transform_point(cam.camera_to_world, o_cam)
     d = cm.normalize_fused(cm.transform_vector(cam.camera_to_world, d_cam))
     return o, d
+
+
+def generate_rays_weighted(cam: CameraParams, p_film, u_lens):
+    """(o, d, weight): realistic cameras trace the lens system with the
+    given pupil sample (realistic.cpp:GenerateRay); other models return
+    weight 1 (their We is folded into the projective mapping)."""
+    if cam.lens is not None:
+        from .realistic import generate_rays_realistic
+
+        return generate_rays_realistic(cam.lens, cam.camera_to_world,
+                                       float(cam.res[0]), float(cam.res[1]),
+                                       p_film, u_lens)
+    o, d = generate_rays(cam, p_film)
+    return o, d, torch.ones(p_film.shape[:-1], device=p_film.device)
+
+
+def make_realistic(camera_to_world: np.ndarray, lens_rows, xres: int,
+                   yres: int, aperture_diameter_mm: float,
+                   focus_distance: float, film_diag_mm: float,
+                   device="cpu") -> CameraParams:
+    """Camera "realistic" (src/cameras/realistic.cpp): lens prescription
+    + thick-lens autofocus + exit-pupil tables (render/realistic.py)."""
+    from .realistic import make_lens_system
+
+    lens = make_lens_system(
+        np.asarray(lens_rows, np.float64), aperture_diameter_mm,
+        focus_distance, film_diag_mm * 1e-3, xres, yres, device=device)
+    return CameraParams(
+        raster_to_camera=torch.eye(4, device=device),
+        camera_to_world=torch.as_tensor(
+            np.asarray(camera_to_world, np.float32), device=device),
+        dx_camera=torch.zeros(3, device=device),
+        dy_camera=torch.zeros(3, device=device),
+        orthographic=False,
+        lens=lens,
+        res=(float(xres), float(yres)),
+    )

@@ -3,7 +3,9 @@ statmc_tpu/render/intersect.py).
 
 Triangles go through the fused intersector (accel/fused.py, kernel B1)
 or, above FUSED_MAX_TRIS, the two-level traversal (accel/twolevel.py,
-kernels B3 and B4); spheres are tested densely with the quadric.  The
+kernels B3 and B4), or under `Accelerator "kdtree"` the kd-restart walk
+(accel/kdtree.py, plain PyTorch); spheres are tested densely with the
+quadric.  The
 dpdu tangent is assembled for hair scenes (the Marschner frame measures
 its angles against the curve axis) and for the exact lockstep replay,
 whose BSDF frames follow pbrt's; the anisotropic uv footprint (uv_axes)
@@ -17,6 +19,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..accel.fused import FusedTris, intersect_fused
+from ..accel.kdtree import KdTreeTris, intersect_kdtree
 from ..accel.twolevel import TwoLevelTris, intersect_twolevel
 from ..core import math as cm
 from ..scene.build import SceneTables, scene_has_hair
@@ -262,15 +265,17 @@ def _intersect_tris(bvh, o, d, t_max):
     driver chose for the scene (statmc_tpu's _bvh_intersect)."""
     if isinstance(bvh, TwoLevelTris):
         return intersect_twolevel(bvh, o, d, t_max)
+    if isinstance(bvh, KdTreeTris):
+        return intersect_kdtree(bvh, o, d, t_max)
     return intersect_fused(bvh, o, d, t_max)
 
 
 def intersect_scene(scene: SceneTables, o, d, t_max,
-                    bvh: FusedTris | TwoLevelTris | None,
+                    bvh: FusedTris | TwoLevelTris | KdTreeTris | None,
                     lean: bool = False,
                     want_tangent: bool | None = None) -> Hit:
-    """Closest hit: dense spheres, then triangles through B1 or B3 + B4.
-    bvh is None only for a scene without triangles."""
+    """Closest hit: dense spheres, then triangles through B1, B3 + B4 or
+    the kd walk.  bvh is None only for a scene without triangles."""
     R = o.shape[0]
     t_best = t_max
     kind = torch.zeros((R,), dtype=torch.int32, device=o.device)
@@ -288,7 +293,7 @@ def intersect_scene(scene: SceneTables, o, d, t_max,
 
 
 def occluded_scene(scene: SceneTables, o, d, t_max,
-                   bvh: FusedTris | TwoLevelTris | None):
+                   bvh: FusedTris | TwoLevelTris | KdTreeTris | None):
     """Any-hit (shadow) test via dense spheres + the triangle accelerator
     (a full closest hit, as in the JAX package)."""
     blocked = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
@@ -296,6 +301,11 @@ def occluded_scene(scene: SceneTables, o, d, t_max,
         _, hit = ray_spheres(o, d, scene.sph_center, scene.sph_radius, t_max)
         blocked |= torch.any(hit, dim=-1)
     if scene.tri_p0.shape[0] > 0:
-        _, _, found = _intersect_tris(bvh, o, d, t_max)
+        if isinstance(bvh, KdTreeTris):
+            # The kd walk stops at its first hit, as in the JAX package;
+            # the fused and two-level paths find the closest.
+            _, _, found = intersect_kdtree(bvh, o, d, t_max, any_hit=True)
+        else:
+            _, _, found = _intersect_tris(bvh, o, d, t_max)
         blocked |= found
     return blocked

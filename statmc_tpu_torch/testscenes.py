@@ -684,3 +684,65 @@ def volpath_terrain_text(width=1280, height=720, spp=4, iterations=1,
                               denoise=denoise)
     return media_text(text, ((-1.5, 0.3, -1.5), (1.5, 3.3, 1.5)), grid,
                       seed, boundary=boundary)
+
+
+# ---------------------------------------------------------------------------
+# The realistic camera, the kd-tree and the ao / sppm integrators on the
+# staircase and terrain proxies (the port's own helpers: each edits one
+# directive of scene_text / terrain_scene_text).
+
+# The staircase proxy's camera: its distance to the look-at point, on the
+# stairs (LookAt 6.5 4.5 -7.5  -1 2.5 0).
+STAIRCASE_FOCUS = 10.79
+# The lens prescription of tests/fixtures/biconvex.dat: a symmetric
+# biconvex singlet, f ~ 35 mm, with its aperture stop behind it (rows:
+# curvature radius, thickness, eta, aperture diameter; millimetres).
+BICONVEX = "35 4 1.5 20\n-35 1 1 20\n0 39 0 15\n"
+
+
+def _with_integrator(text: str, line: str) -> str:
+    """`text` with its first line (the Integrator directive) replaced."""
+    return line + "\n" + text.split("\n", 1)[1]
+
+
+def realistic_scene_text(lensfile: str, focus: float = STAIRCASE_FOCUS,
+                         aperture: float = 4.0, **kw) -> str:
+    """scene_text(**kw) seen through Camera "realistic" with the lens
+    prescription `lensfile`, focused at `focus` metres."""
+    text = scene_text(**kw)
+    cam = 'Camera "perspective" "float fov" [55]'
+    assert cam in text
+    return text.replace(cam, (
+        f'Camera "realistic" "string lensfile" ["{lensfile}"] '
+        f'"float focusdistance" [{focus}] '
+        f'"float aperturediameter" [{aperture}]'))
+
+
+def kdtree_scene_text(**kw) -> str:
+    """scene_text(**kw) under `Accelerator "kdtree"`."""
+    return scene_text(**kw).replace("WorldBegin",
+                                    'Accelerator "kdtree"\nWorldBegin', 1)
+
+
+def ao_scene_text(nsamples: int = 64, cossample: bool = True,
+                  terrain: bool = False, iterations: int = 1, **kw) -> str:
+    """The staircase (or the terrain) under Integrator "ao"."""
+    text = (terrain_scene_text(iterations=iterations, **kw) if terrain
+            else scene_text(iterations=iterations, **kw))
+    return _with_integrator(text, (
+        f'Integrator "ao" "integer nsamples" [{nsamples}] '
+        f'"bool cossample" ["{"true" if cossample else "false"}"] '
+        f'"integer iterations" [{iterations}]'))
+
+
+def sppm_scene_text(maxdepth: int = 5, radius: float = 0.05,
+                    photons: int | None = None, iterations: int = 2,
+                    **kw) -> str:
+    """The staircase under Integrator "sppm"; `photons` None keeps
+    photonsperiteration at its default (one per pixel, at least 4,096)."""
+    line = (f'Integrator "sppm" "integer maxdepth" [{maxdepth}] '
+            f'"float radius" [{radius}] "integer iterations" [{iterations}]')
+    if photons is not None:
+        line += f' "integer photonsperiteration" [{photons}]'
+    return _with_integrator(scene_text(iterations=iterations,
+                                       maxdepth=maxdepth, **kw), line)

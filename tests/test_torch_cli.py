@@ -227,7 +227,7 @@ def test_print_stats_text(staircase):
 
 def test_mesh_and_missing_cuda_raise(staircase):
     path, tmp = staircase
-    with pytest.raises(NotImplementedError, match="Rest of slice 4"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
         TM.main([path, "--mesh", "1x2", "--device", "cpu"])
     if not torch.cuda.is_available():
         # The card is the default device; without one the CLI refuses.

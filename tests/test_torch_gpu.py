@@ -685,3 +685,107 @@ def test_b1_on_volpath_walk_inputs(cuda, tmp_path):
         t_p, id_p = TF.intersect_plain(*args, ft.n_tris)
         _bits_equal(t_k, id_k, t_p, id_p)
     assert max(int((c[3] > 0).sum()) for c in calls) > 0
+
+
+def _card_against_cpu(path, share=0.98):
+    """load(path).render() on the card and on the CPU: equal ray totals,
+    every buffer within rtol 1e-4 on >= share of its pixels; returns the
+    card's renderer."""
+    from statmc_tpu_torch.driver import load
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = load(path, device=dev)
+        runs[dev] = (r, [x["rays_total"] for x in r.render(verbose=False)],
+                     r.buffers())
+    assert runs["cuda"][1] == runs["cpu"][1]
+    gpu, cpu = runs["cuda"][2], runs["cpu"][2]
+    assert gpu.keys() == cpu.keys()
+    for k in cpu:
+        close = np.isclose(gpu[k], cpu[k], rtol=1e-4, atol=1e-6)
+        assert (close.all(-1) if close.ndim == 3 else close).mean() >= share
+    return runs["cuda"][0]
+
+
+def _launch_counts(reset=False):
+    fns = {"B1": TF.intersect_tiles, "B2": FC.run_filter, "B3": TT.cull,
+           "B4": TT.walk}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+@pytest.mark.gpu
+def test_realistic_render_card_matches_cpu(cuda, tmp_path):
+    """The realistic staircase (tests/fixtures/biconvex.dat) at 32x24 on
+    the card against the CPU (chip_smoke.py's small rule); B1 and B2
+    launch."""
+    import os
+
+    from statmc_tpu_torch import testscenes as TS
+
+    lens = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "biconvex.dat")
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.realistic_scene_text(
+        lens, width=32, height=24, spp=2, iterations=2, maxdepth=4,
+        filterradius=2))
+    _launch_counts(reset=True)
+    r = _card_against_cpu(str(path))
+    n = _launch_counts()
+    assert r.s.cam.lens is not None and n["B1"] > 0 and n["B2"] > 0
+
+
+@pytest.mark.gpu
+def test_kdtree_render_card_matches_cpu(cuda, tmp_path):
+    """The kd-tree staircase at 16x12 on the card against the CPU: the
+    walk replaces B1, so B1 never launches; B2 does."""
+    from statmc_tpu_torch import testscenes as TS
+    from statmc_tpu_torch.accel.kdtree import KdTreeTris
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.kdtree_scene_text(width=16, height=12, spp=1,
+                                         iterations=1, maxdepth=3,
+                                         filterradius=2))
+    _launch_counts(reset=True)
+    r = _card_against_cpu(str(path))
+    n = _launch_counts()
+    assert isinstance(r.s.bvh, KdTreeTris)
+    assert n["B1"] == 0 and n["B2"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cossample", [True, False])
+def test_ao_render_card_matches_cpu(cuda, cossample, tmp_path):
+    from statmc_tpu_torch import testscenes as TS
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.ao_scene_text(nsamples=8, cossample=cossample,
+                                     width=16, height=12, spp=2,
+                                     iterations=2))
+    _launch_counts(reset=True)
+    _card_against_cpu(str(path))
+    assert _launch_counts()["B1"] > 0
+
+
+@pytest.mark.gpu
+def test_sppm_render_card_matches_cpu(cuda, tmp_path):
+    """Two SPPM passes at 16x12 on the card against the CPU, and the
+    grid deposit run twice on the card, bit for bit."""
+    from statmc_tpu_torch import testscenes as TS
+    from statmc_tpu_torch.driver import load
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.sppm_scene_text(width=16, height=12, spp=1,
+                                       photons=4096, radius=0.3))
+    _launch_counts(reset=True)
+    _card_against_cpu(str(path))
+    assert _launch_counts()["B1"] > 0
+    films = []
+    for _ in range(2):
+        r = load(str(path), device="cuda")
+        r.run_iteration(1)
+        films.append((r.tau.cpu(), r.n_acc.cpu()))
+    assert torch.equal(films[0][0], films[1][0])
+    assert torch.equal(films[0][1], films[1][1])

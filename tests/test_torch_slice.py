@@ -96,9 +96,11 @@ def test_package_imports_without_jax():
 
 
 @pytest.mark.parametrize("edit,item", [
-    (("Camera \"perspective\"", "Camera \"realistic\""), "Rest of slice 4"),
-    (("Integrator \"statpath\"", "Integrator \"bdpt\""), "Rest of slice 4"),
-    (("WorldBegin", "Accelerator \"kdtree\"\nWorldBegin"), "Rest of slice 4"),
+    (("Integrator \"statpath\"", "Integrator \"mlt\""), "BDPT and MLT"),
+    (("Integrator \"statpath\"", "Integrator \"bdpt\""), "BDPT and MLT"),
+    (("Integrator \"statpath\"",
+      "Integrator \"mlt\" \"bool bidirectional\" [\"false\"]"),
+     "BDPT and MLT"),
 ])
 def test_unported_features_raise(edit, item, tmp_path):
     text = scene_text(width=8, height=8, spp=1, iterations=1, maxdepth=2)
