@@ -34,9 +34,9 @@ and the final line is not printed:
 7. the same call as 5 on a small staircase proxy (32x24) on the card and
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
-7a. samplers: one 1280x720 staircase iteration under random, halton,
-   sobol and 02sequence, twice in turns (rays/s, B1's launches around
-   each), then 7 under each LD mode and lockstep;
+7a. samplers: one 1280x720 staircase iteration (2 spp) under random,
+   halton, sobol and 02sequence, twice in turns (rays/s, B1's launches
+   around each), then 7 under each LD mode and lockstep;
 7b. B2 as the backward kernel of denoise/grad.py's FilterApply: one
    forward + backward at 1280x720, r = 20 (B2's launches counted around
    it), the gradient against the plain version's VJP and, on a 96x96
@@ -112,7 +112,7 @@ and the final line is not printed:
    just before the render, read just after); every buffer finite, film
    mean > 0; the share of camera rays the lens lets through; rays/s
    beside the staircase's, peak device memory;
-8g. the kd-tree: the staircase under `Accelerator "kdtree"` (4 spp, 1
+8g. the kd-tree: the staircase under `Accelerator "kdtree"` (2 spp, 1
    iteration, denoised): B2 must launch and B1 must not; the SAH
    build's seconds, node count, depth and widest leaf; the walk's steps
    a call (mean and maximum) against its cap, and steps a ray;
@@ -123,9 +123,20 @@ and the final line is not printed:
    0.05, 2 passes; B1 must launch): per pass the grid deposit's pairs
    tested and kept, photons a visible point, the radius's shrink, and
    pass 1 run twice (two renderers) equal bit for bit;
-8k. each of 8f-8i once more under torch.profiler, device only (after
+8j. bdpt on the staircase (maxdepth 5, 1 spp, 2 iterations; B1 must
+   launch, B2-B4 must not): the t = 1 splat lanes and pixels a sample,
+   rays/s (the JAX package's nominal count) beside the staircase's, peak
+   memory, iteration 1 run twice (two renderers) equal bit for bit; bdpt
+   on the terrain (1 spp, 1 iteration; B3 and B4 must launch), rays/s
+   beside the terrain's; mlt on the staircase (bidirectional, maxdepth
+   5): the bootstrap, then one mutation a pixel (113 steps of 8,192
+   chains; B1 must launch): b, the acceptance rate, the share of large
+   steps, steps/s, mutations/s beside the staircase's rays/s, peak
+   memory;
+8k. each of 8f-8j once more under torch.profiler, device only (after
    all their unprofiled renders): kernels an iteration (the kd-tree's
-   one sample of its 4), device ms, busy share, B1-B4's ms;
+   one sample of its 2; BDPT's iteration 3, one sample; two MLT steps),
+   device ms, busy share, B1-B4's ms;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
    iteration's denoise pass profiled once more on its own; then one more
@@ -181,6 +192,13 @@ and the final line is not printed:
     card and on the CPU: equal ray totals, every buffer within rtol
     1e-4 on >= 98% of its pixels, the kernels of each path launched on
     the card;
+12g. the bdpt staircase at 32x24 (maxdepth 4, 2 iterations) on the card
+    and on the CPU, as 12f (B1 launched); mlt at 32x24 (maxdepth 3), both
+    mutation modes, N_CHAINS and N_BOOTSTRAP cut to 512 and 1,024 on
+    both sides: b within rtol 1e-4, the bootstrap's chains, the first
+    step's proposals and accepts and its splat pixels (rtol 1e-4) on >=
+    98%, after 3 steps >= 90% of the chains still identical and the
+    film's mean within 2%, B1 launched on the card;
 12a. the command line: ``python -m statmc_tpu_torch`` in a subprocess on
     the 1280x720 staircase with configs/render-for-ours.pbrt's block (cut
     to maxdepth 8 and 4 spp), 2 iterations, every buffer written; then
@@ -249,6 +267,11 @@ TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
 # it.  Their rays/s stand beside the 4-spp scenes' (a path's rays/s
 # hardly depends on the count); their kernels an iteration halve.
 FEATURE_SPP = 2
+# Samples a pixel of the kd-tree staircase and of the samplers phase's
+# full-width iterations, cut from 4 to keep the whole run inside its time
+# limit once the bdpt and mlt phases joined it.  Rays/s hardly depends on
+# the count.
+KDTREE_SPP = SAMPLER_SPP = 2
 # The profiler ranges whose device time _trace_sums attributes: the
 # two-level intersect's stages, the texture lookups, the env-map branches,
 # the hair model and the BSSRDF transport (these nest: sss.probe inside
@@ -375,10 +398,10 @@ def _nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def _scene_text(width, height):
+def _scene_text(width, height, spp=SPP):
     from statmc_tpu_torch.testscenes import scene_text
 
-    return scene_text(width=width, height=height, spp=SPP, iterations=2,
+    return scene_text(width=width, height=height, spp=spp, iterations=2,
                       maxdepth=MAXDEPTH, denoise=True, filtersd=10.0,
                       filterradius=RADIUS)
 
@@ -1400,7 +1423,7 @@ def phase_samplers(card):
         order = ("random",) + LD_SAMPLERS
         for sampler in order + order[::-1]:
             path = _write_scene(tmp, f"{sampler}.pbrt", _with_sampler(
-                _scene_text(WIDTH, HEIGHT), sampler))
+                _scene_text(WIDTH, HEIGHT, SAMPLER_SPP), sampler))
             r = load(path, device="cuda")
             r.progress = False
             F.intersect_tiles.launches = 0
@@ -1412,7 +1435,8 @@ def phase_samplers(card):
                 raise AssertionError(f"{sampler}: film or launches")
             rate = log["rays_total"] / log["render_s"]
             runs.setdefault(sampler, []).append(rate)
-            print(f"sampler {sampler}: {WIDTH}x{HEIGHT} spp {SPP} maxdepth "
+            print(f"sampler {sampler}: {WIDTH}x{HEIGHT} spp {SAMPLER_SPP} "
+                  f"maxdepth "
                   f"{MAXDEPTH}, iteration 1: {log['rays_total']:.0f} rays "
                   f"in {log['render_s']:.3f} s = {rate:.1f} rays/s, B1 "
                   f"launches {launches} [{card}]", flush=True)
@@ -2653,9 +2677,9 @@ def phase_realistic(card, plain_s, plain_rays):
 
 
 def phase_kdtree(card, plain_s, plain_rays):
-    """The staircase under `Accelerator "kdtree"` (4 spp, 1 iteration,
-    maxdepth 8, denoised): B2 launches and B1 never; the SAH build's
-    seconds, nodes, depth and widest leaf; the walk's steps a call
+    """The staircase under `Accelerator "kdtree"` (KDTREE_SPP spp, 1
+    iteration, maxdepth 8, denoised): B2 launches and B1 never; the SAH
+    build's seconds, nodes, depth and widest leaf; the walk's steps a call
     (mean, max) against its cap and lane-steps a ray (kdtree.walk_stats);
     rays/s beside the staircase's.  Returns (renderer, launches, render
     s, rays/s, walk summary)."""
@@ -2676,7 +2700,7 @@ def phase_kdtree(card, plain_s, plain_rays):
                                                       walks)):
         r, logs, launches, setup_s, peak = _new_path(
             card, "kdtree", kdtree_scene_text(
-                width=WIDTH, height=HEIGHT, spp=SPP, iterations=1,
+                width=WIDTH, height=HEIGHT, spp=KDTREE_SPP, iterations=1,
                 maxdepth=MAXDEPTH, denoise=True, filterradius=RADIUS),
             need=("B2",), never=("B1",))
     kd = r.s.bvh
@@ -2831,7 +2855,8 @@ def phase_new_profiles(card, runs):
     unprofiled render of these paths): kernels, device ms, busy share and
     B1-B4's ms.  Iteration None profiles one sample of iteration 1 (the
     kd-tree's ~4 million kernels an iteration take ~5 minutes under the
-    profiler), beside a quarter of its render s.  Returns {name:
+    profiler), beside a quarter of its render s; a callable is run on the
+    renderer (MLT's steps), beside the given s.  Returns {name:
     {kernel: ms}}."""
     import torch
 
@@ -2840,6 +2865,8 @@ def phase_new_profiles(card, runs):
         if i is None:  # one sample of the iteration (the kd-tree's)
             what, fn = f"1 of {r.s.ecfg.pixel_samples} samples", _one_sample
             render_s /= r.s.ecfg.pixel_samples
+        elif callable(i):  # a few steps (MLT's)
+            what, fn = "steps", i
         else:
             what, fn = f"iteration {i}", lambda r: r.run_iteration(i)
         kernels, dev_ms, ms, read_s = _device_profile(lambda: fn(r))
@@ -2947,6 +2974,309 @@ def _new_results(new, new_ms):
     return workflow, per_kernel
 
 
+BDPT_MAXDEPTH = 5
+# The small card-against-CPU MLT renders (maxdepth 3): N_CHAINS and
+# N_BOOTSTRAP cut on both sides (8,192 and 65,536 at full width) so that
+# the CPU half stays short; MLT_SMALL_STEPS mutation steps after the
+# bootstrap.
+MLT_SMALL_CHAINS, MLT_SMALL_BOOTSTRAP, MLT_SMALL_STEPS = 512, 1024, 3
+MLT_PROFILED_STEPS = 2  # mutation steps under the profiler
+
+
+def _bdpt_splats(r, i):
+    """Iteration i of the BDPT renderer r with its t = 1 splats recorded:
+    (log, splat lanes, distinct splat pixels) summed over the iteration."""
+    from statmc_tpu_torch.render import bdpt as BD
+
+    stats = []
+    with _patched((BD, "splat_stats", stats)):
+        log = r.run_iteration(i)
+    return log, sum(x[0] for x in stats), sum(x[1] for x in stats)
+
+
+def phase_bdpt(card, plain_s, plain_rays):
+    """Integrator "bdpt" on the staircase at full width: maxdepth 5, 1
+    spp, 2 iterations; B1 launches and B2-B4 do not (counts set to 0 just
+    before iteration 1, read just after iteration 2).  Per iteration the
+    t = 1 splat lanes and pixels a sample; rays/s (the JAX package's
+    nominal count) beside the staircase's; peak memory; the film's mean;
+    iteration 1 run twice (a second renderer) equal bit for bit.  Returns
+    (renderer, launches, iteration 2's render s, rays/s, summary)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.testscenes import bdpt_scene_text
+
+    text = bdpt_scene_text(maxdepth=BDPT_MAXDEPTH, iterations=2,
+                           width=WIDTH, height=HEIGHT, spp=1, denoise=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "bdpt.pbrt", text)
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        setup_s = time.perf_counter() - t0
+        twin = load(path, device="cuda")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    its = []
+    for i in (1, 2):
+        log, lanes, pixels = _bdpt_splats(r, i)
+        its.append({"render_s": log["render_s"], "splat_lanes": lanes,
+                    "splat_pixels": pixels})
+        if i == 1:
+            state1 = (r.film_sum.clone(), r.splat_sum.clone())
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    twin.run_iteration(1)
+    same = (torch.equal(state1[0], twin.film_sum)
+            and torch.equal(state1[1], twin.splat_sum))
+    film = r.buffers()["film"]
+    if (not (np.isfinite(film).all() and film.mean() > 0) or not same
+            or launches["B1"] <= 0
+            or any(launches[k] for k in ("B2", "B3", "B4"))
+            or its[0]["splat_lanes"] <= 0):
+        raise AssertionError(f"bdpt: film mean {film.mean()}, iteration 1 "
+                             f"twice bit for bit {same}, launches "
+                             f"{launches}, iterations {its}")
+    rays = float(r.ray_total) / 2
+    rate, rtext = _rate_text({"render_s": its[1]["render_s"]}, rays,
+                             plain_rays / plain_s, "staircase iteration 2")
+    summary = {"iterations": its, "peak_gib": peak, "bitwise": same,
+               "film_mean": float(film.mean()),
+               "strategies": len(r.strategies()) + BDPT_MAXDEPTH}
+    print(f"bdpt: {WIDTH}x{HEIGHT}, maxdepth {BDPT_MAXDEPTH}, 1 spp, "
+          f"{summary['strategies']} strategies a sample, setup {setup_s:.1f} "
+          "s; " + "; ".join(
+              f"iteration {i + 1}: {t['render_s']:.3f} s, {t['splat_lanes']}"
+              f" splat lanes on {t['splat_pixels']} pixels a sample"
+              for i, t in enumerate(its))
+          + f"; iteration 2: {rtext} (nominal rays); iteration 1 twice bit "
+          f"for bit {same}; peak memory {peak:.2f} GiB; film mean "
+          f"{film.mean():.5f}; launches {launches} [{card}]", flush=True)
+    del twin
+    return r, launches, its[1]["render_s"], rate, summary
+
+
+def phase_bdpt_terrain(card, plain_s, plain_rays):
+    """Integrator "bdpt" on the terrain at full width (maxdepth 5, 1 spp,
+    1 iteration): B3 and B4 launch, B1 and B2 do not; rays/s beside the
+    statpath terrain's.  Returns (renderer, launches, render s, rays/s)."""
+    from statmc_tpu_torch.testscenes import bdpt_scene_text
+
+    r, logs, launches, setup_s, peak = _new_path(
+        card, "bdpt-terrain", bdpt_scene_text(
+            maxdepth=BDPT_MAXDEPTH, iterations=1, terrain=True, width=WIDTH,
+            height=HEIGHT, spp=1),
+        need=("B3", "B4"), never=("B1", "B2"))
+    log = logs[-1]
+    rate, text = _rate_text(log, log["rays_total"], plain_rays / plain_s,
+                            "statpath terrain")
+    print(f"bdpt terrain: {WIDTH}x{HEIGHT}, maxdepth {BDPT_MAXDEPTH}, 1 spp, "
+          f"setup {setup_s:.1f} s; {text} (nominal rays); peak memory "
+          f"{peak:.2f} GiB; film mean {r.buffers()['film'].mean():.5f}; "
+          f"launches {launches} [{card}]", flush=True)
+    return r, launches, log["render_s"], rate
+
+
+def phase_mlt(card, plain_s, plain_rays):
+    """Integrator "mlt" (bidirectional, maxdepth 5) on the staircase at
+    full width: the bootstrap (65,536 paths, 8,192 chains seeded), then
+    one mutation a pixel (113 steps of 8,192 chains); B1 launches (counts
+    set to 0 before the bootstrap, read after the last step).  b, the
+    acceptance rate, the share of large steps, steps a second, mutations
+    a second beside the staircase's rays/s, peak memory.  Returns
+    (renderer, launches, the steps' s, mutations/s, summary)."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import pssmlt as PM
+    from statmc_tpu_torch.testscenes import mlt_scene_text
+
+    text = mlt_scene_text(maxdepth=BDPT_MAXDEPTH, iterations=1, width=WIDTH,
+                          height=HEIGHT, spp=1, denoise=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "mlt.pbrt", text)
+        t0 = time.perf_counter()
+        r = load(path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    r._bootstrap()
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    steps = []
+    with _patched((PM, "step_stats", steps)):
+        log = r.run_iteration(1)
+    launches = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    film = r.buffers()["film"]
+    n = len(steps)
+    C = PM.N_CHAINS
+    acc = sum(x["accepted"] for x in steps) / (n * C)
+    large = sum(x["large"] for x in steps) / (n * C)
+    nonzero = sum(x["proposed_nonzero"] for x in steps) / (n * C)
+    if (not (np.isfinite(film).all() and film.mean() > 0) or r.b <= 0
+            or launches["B1"] <= 0 or not 0 < acc < 1):
+        raise AssertionError(f"mlt: film mean {film.mean()}, b {r.b}, "
+                             f"launches {launches}, acceptance {acc}")
+    rate, rtext = _rate_text(log, r.n_mut, plain_rays / plain_s,
+                             "staircase iteration 2")
+    summary = {"b": r.b, "acceptance": acc, "large_share": large,
+               "proposed_nonzero": nonzero, "steps": n,
+               "steps_per_s": n / log["render_s"], "bootstrap_s": boot_s,
+               "dims": r.D, "peak_gib": peak, "film_mean": float(film.mean())}
+    print(f"mlt: {WIDTH}x{HEIGHT}, bidirectional, maxdepth {BDPT_MAXDEPTH}, "
+          f"{r.D} dims, setup {setup_s:.1f} s; bootstrap "
+          f"{PM.N_BOOTSTRAP} paths in {boot_s:.2f} s, b {r.b:.6f}; {n} steps "
+          f"of {C} chains in {log['render_s']:.2f} s "
+          f"({n / log['render_s']:.2f} steps/s): "
+          f"{rtext.replace('rays', 'mutations', 2)}; acceptance "
+          f"{acc:.4f}, large steps {large:.4f}, proposals with y > 0 "
+          f"{nonzero:.4f}; peak memory {peak:.2f} GiB; film mean "
+          f"{film.mean():.5f}; launches {launches} [{card}]", flush=True)
+    return r, launches, log["render_s"], rate, summary
+
+
+def _mlt_steps(r, n):
+    """n more mutation steps of the MLT renderer r (a profiled run)."""
+    from statmc_tpu_torch.core import rng as crng
+
+    for k in crng.split(crng.fold_in(r.key, 99), n):
+        r._chains = r.step(r._chains, k)
+
+
+def bdpt_small():
+    from statmc_tpu_torch.testscenes import bdpt_scene_text
+
+    return bdpt_scene_text(maxdepth=4, iterations=2, width=SMALL_W,
+                           height=SMALL_H, spp=1)
+
+
+def phase_mlt_small(card):
+    """MLT at 32x24 (maxdepth 3) on the card and on the CPU, in both
+    mutation modes, with N_CHAINS and N_BOOTSTRAP cut to
+    MLT_SMALL_CHAINS and MLT_SMALL_BOOTSTRAP on both sides: b within rtol
+    1e-4; the bootstrap's chains, the first step's proposals, accepts and
+    its splat per pixel (rtol 1e-4) on >= SMALL_SHARE; after
+    MLT_SMALL_STEPS steps the share of chains still identical >= 0.9 (an
+    ulp of f can flip an accept, and then a chain parts) and the film's
+    mean within 2%; B1 launches on the card."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import pssmlt as PM
+    from statmc_tpu_torch.testscenes import mlt_scene_text
+
+    out = {}
+    for bidi in (True, False):
+        text = mlt_scene_text(bidi, maxdepth=3, iterations=1, width=SMALL_W,
+                              height=SMALL_H, spp=1, denoise=False)
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp, _patched(
+                (PM, "N_CHAINS", MLT_SMALL_CHAINS),
+                (PM, "N_BOOTSTRAP", MLT_SMALL_BOOTSTRAP)):
+            path = _write_scene(tmp, "mlt-small.pbrt", text)
+            for dev in ("cuda", "cpu"):
+                r = load(path, device=dev)
+                if dev == "cuda":
+                    _zero_counts()
+                r._bootstrap()
+                U0 = r._chains[0].cpu()
+                props = []
+                real_f = r._f
+                r._f = lambda U: props.append(U.cpu()) or real_f(U)
+                r.run_iteration(1)
+                first = ([x.cpu() for x in r._chains], r.splat.cpu().clone())
+                for i in range(2, MLT_SMALL_STEPS + 1):
+                    r.run_iteration(i)
+                if dev == "cuda":
+                    launches = _read_counts()
+                runs[dev] = {"b": r.b, "U0": U0, "prop": props[0],
+                             "first": first, "U": r._chains[0].cpu(),
+                             "film": r.film_mean.cpu().numpy()}
+        g, c = runs["cuda"], runs["cpu"]
+        rows = lambda a, b: float((a == b).all(-1).float().mean())
+        acc_g = (g["first"][0][0] == g["prop"]).all(-1)
+        acc_c = (c["first"][0][0] == c["prop"]).all(-1)
+        close = np.isclose(g["first"][1].numpy(), c["first"][1].numpy(),
+                           rtol=1e-4, atol=1e-6).all(-1)
+        res = {"b": (g["b"], c["b"]), "seeded": rows(g["U0"], c["U0"]),
+               "proposals": rows(g["prop"], c["prop"]),
+               "accepts": float((acc_g == acc_c).float().mean()),
+               "splat_pixels": float(close.mean()),
+               "identical_after": rows(g["U"], c["U"]),
+               "film_means": (float(g["film"].mean()),
+                              float(c["film"].mean()))}
+        bad = (abs(res["b"][0] - res["b"][1]) > 1e-4 * res["b"][1]
+               or min(res["seeded"], res["proposals"], res["accepts"],
+                      res["splat_pixels"]) < SMALL_SHARE
+               or res["identical_after"] < 0.9
+               or abs(res["film_means"][0] - res["film_means"][1])
+               > 0.02 * res["film_means"][1]
+               or not np.isfinite(g["film"]).all() or launches["B1"] <= 0)
+        print(f"mlt small, bidirectional {bidi}: {SMALL_W}x{SMALL_H}, "
+              f"{MLT_SMALL_CHAINS} chains, {MLT_SMALL_BOOTSTRAP}-path "
+              f"bootstrap, card vs cpu: b {res['b'][0]:.7f} vs "
+              f"{res['b'][1]:.7f}; seeded chains equal {res['seeded']:.4f}, "
+              f"step 1: proposals equal {res['proposals']:.4f}, accepts "
+              f"equal {res['accepts']:.4f}, splat pixels within rtol 1e-4 "
+              f"{res['splat_pixels']:.4f}; after {MLT_SMALL_STEPS} steps "
+              f"{res['identical_after']:.4f} of the chains identical, film "
+              f"means {res['film_means'][0]:.6f} vs {res['film_means'][1]:.6f}"
+              f"; card launches {launches} [{card}]", flush=True)
+        if bad:
+            raise AssertionError(f"mlt small, bidirectional {bidi}: {res}")
+        out["bidirectional" if bidi else "unidirectional"] = res
+    return out
+
+
+def _bdpt_mlt_paths(card, phase, stair_s, stair_rays, terrain_s,
+                    terrain_rays):
+    """The bdpt and mlt renders at full width, unprofiled: bdpt on the
+    staircase and the terrain, mlt on the staircase."""
+    return {
+        "bdpt": phase("bdpt", phase_bdpt, card, stair_s, stair_rays),
+        "bdpt_terrain": phase("bdpt terrain", phase_bdpt_terrain, card,
+                              terrain_s, terrain_rays),
+        "mlt": phase("mlt", phase_mlt, card, stair_s, stair_rays)}
+
+
+def _bdpt_mlt_profiled(runs):
+    """phase_new_profiles' entries of the bdpt and mlt paths: BDPT's one sample
+    (iteration 3 at 1 spp) on each scene, MLT_PROFILED_STEPS MLT steps
+    (against the measured steps' time for as many)."""
+    b, bt, m = runs["bdpt"], runs["bdpt_terrain"], runs["mlt"]
+    return {"bdpt": (b[0], 3, b[2]), "bdpt_terrain": (bt[0], 2, bt[2]),
+            "mlt": (m[0], lambda r: _mlt_steps(r, MLT_PROFILED_STEPS),
+                    m[2] * MLT_PROFILED_STEPS / m[4]["steps"])}
+
+
+def _bdpt_mlt_results(runs, ms):
+    """The workflow line's entries of the bdpt and mlt paths, and per
+    kernel its launches and profiled ms on each."""
+    workflow = {"bdpt_rays_per_s": runs["bdpt"][3],
+                "bdpt_terrain_rays_per_s": runs["bdpt_terrain"][3],
+                "mlt_mutations_per_s": runs["mlt"][3],
+                "bdpt": runs["bdpt"][4], "mlt": runs["mlt"][4],
+                "mlt_b": runs["mlt"][4]["b"],
+                "mlt_acceptance": runs["mlt"][4]["acceptance"],
+                "bdpt_mlt_kernels_profiled": {k: v["kernels"]
+                                              for k, v in ms.items()}}
+    per_kernel = {b: {} for b in KERNEL_NAMES}
+    for name, v in runs.items():
+        for b in KERNEL_NAMES:
+            per_kernel[b][f"{name}_launches"] = v[1][b]
+            per_kernel[b][f"{name}_main_path_ms"] = ms[name].get(b)
+    return workflow, per_kernel
+
+
 def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     import torch
 
@@ -3023,6 +3353,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                          vp)
     new = _new_paths(card, phase, stair_s, stair_rays, render_s,
                      terrain_rays)
+    bm = _bdpt_mlt_paths(card, phase, stair_s, stair_rays, render_s,
+                         terrain_rays)
     path_ms, stair_whole = phase("staircase profile", phase_staircase_profile,
                                  card, rs, stair_s)
     del rs
@@ -3041,10 +3373,13 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     vp_ms = phase("volpath profile", phase_volpath_profile, card, vp,
                   vp_log["render_s"], stair_whole)
     del vp
-    new_ms = phase("new paths profile", phase_new_profiles, card,
-                   {k: (v[0], _PROFILED[k], v[2])
-                    for k, v in new.items()})
+    all_ms = phase("new paths profile", phase_new_profiles, card,
+                   {**{k: (v[0], _PROFILED[k], v[2])
+                       for k, v in new.items()}, **_bdpt_mlt_profiled(bm)})
+    new_ms = {k: all_ms[k] for k in new}
+    bm_ms = {k: all_ms[k] for k in bm}
     new = {k: (None, *v[1:]) for k, v in new.items()}  # the renderers go
+    bm = {k: (None, *v[1:]) for k, v in bm.items()}
     phase("B3 main-path rays", phase_b3_main_rays, card, r.s.bvh.bounds,
           cull_calls, other)
     del cull_calls
@@ -3062,9 +3397,14 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
     phase("volpath small", phase_small_reference, card, "volpath staircase",
           volpath_small, SMALL_SHARE, 1e-3, ("B1", "B2"))
     _new_smalls(card, phase)
+    phase("bdpt small", phase_small_reference, card, "bdpt", bdpt_small(),
+          SMALL_SHARE, 0.0, ("B1",))
+    mlt_small = phase("mlt small", phase_mlt_small, card)
     cli = phase("CLI", phase_cli, card)
     cam = b34["camera"]
     new_workflow, new_kernels = _new_results(new, new_ms)
+    bm_workflow, bm_kernels = _bdpt_mlt_results(bm, bm_ms)
+    bm_workflow["mlt_small"] = mlt_small
     kernels = [
         {"name": "B1 fused_intersect", "route": "cuda",
          "source": "statmc_tpu_torch/csrc/fused_intersect.cu",
@@ -3139,6 +3479,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                   "volpath_terrain_launches": vt_launches[b],
                   "volpath_terrain_main_path_ms": vt_ms.get(b)})
         k.update(new_kernels[b])
+        k.update(bm_kernels[b])
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,
@@ -3153,7 +3494,8 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
         "sss_probe_calls_checked": probe_checked,
         "volpath_render_s": vp_log["render_s"],
         "volpath_rays_per_s": vp_rate,
-        "volpath_walk_calls_checked": walk_checked, **new_workflow}}))
+        "volpath_walk_calls_checked": walk_checked, **new_workflow,
+        **bm_workflow}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

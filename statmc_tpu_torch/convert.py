@@ -121,21 +121,41 @@ def renderer_state(jr, tr) -> None:
 
 
 # The estimator state of each alternative integrator (render/ao.py,
-# render/sppm.py): tensors, then Python numbers.
-_ALT_STATE = {"AORenderer": (("film_sum",), ("n_cam",)),
+# render/sppm.py, render/bdpt.py, render/pssmlt.py): tensors, Python ints,
+# Python floats, and tuples of tensors.
+_ALT_STATE = {"AORenderer": (("film_sum",), ("n_cam",), (), ()),
               "SPPMRenderer": (("radius", "n_acc", "tau", "Ld"),
-                               ("n_iters", "total_photons"))}
+                               ("n_iters", "total_photons"), (), ()),
+              "BDPTRenderer": (("film_sum", "splat_sum"), ("n_samples",),
+                               (), ()),
+              "MLTRenderer": (("splat", "key"), ("n_mut",), ("b",),
+                              ("_chains",))}
+
+
+def _tensor(x, device):
+    """A JAX array -> a tensor; uint32 (keys) as int64, as core/rng.py
+    holds them."""
+    a = np.array(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=device)
 
 
 def alt_renderer_state(jr, tr) -> None:
-    """Carry a JAX-package AO or SPPM renderer's state into the port's
-    renderer `tr` of the same kind and scene (SPPM: radius, n_acc, tau, Ld,
-    n_iters, total_photons; AO: film_sum, n_cam) and its ray total, so
-    `tr` renders the next iteration from where `jr` stopped."""
-    tensors, numbers = _ALT_STATE[type(tr).__name__]
+    """Carry a JAX-package AO, SPPM, BDPT or MLT renderer's state into the
+    port's renderer `tr` of the same kind and scene (AO: film_sum, n_cam;
+    SPPM: radius, n_acc, tau, Ld, n_iters, total_photons; BDPT: film_sum,
+    splat_sum, n_samples; MLT: the chains (U, y, L, pix), b, splat, key,
+    n_mut) and its ray total, so `tr` renders the next iteration from
+    where `jr` stopped."""
+    tensors, ints, floats, tuples = _ALT_STATE[type(tr).__name__]
     for name in tensors:
-        setattr(tr, name, torch.as_tensor(np.array(getattr(jr, name)),
-                                          device=tr.device))
-    for name in numbers:
+        setattr(tr, name, _tensor(getattr(jr, name), tr.device))
+    for name in ints:
         setattr(tr, name, int(getattr(jr, name)))
+    for name in floats:
+        setattr(tr, name, float(getattr(jr, name)))
+    for name in tuples:
+        setattr(tr, name, tuple(_tensor(x, tr.device)
+                                for x in getattr(jr, name)))
     tr.ray_total = torch.as_tensor(np.array(jr.ray_total), device=tr.device)

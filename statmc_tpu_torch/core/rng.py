@@ -338,3 +338,137 @@ def draw_2d(keys, ld, mode: int, bounce, slot: int):
     words = _ld_fold(scr, bounce, slot)
     return torch.stack([_ld_draw(words, mode, n, bounce, slot, k, 1098 + k)
                         for k in (0, 1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# jax.random's split / uniform(minval, maxval) / normal / categorical, as
+# MLT (render/pssmlt.py) draws them, with the float32 math of XLA's CPU
+# code: its log and log1p (the Cephes forms it emits, products contracted
+# into FMAs) and the erf_inv polynomial of the CHLO lowering.  Bit-exact
+# with jax.random on the draws tests/test_torch_mlt.py checks.
+# ---------------------------------------------------------------------------
+
+def split(key, n: int):
+    """jax.random.split(key, n) under threefry_partitionable: [n, 2], key
+    i = threefry(key, (0, i)), which is fold_in(key, i)."""
+    return fold_in(key.expand(n, 2),
+                   torch.arange(n, dtype=torch.int64, device=key.device))
+
+
+def uniform_range(key, shape, minval: float, maxval: float):
+    """jax.random.uniform(key, shape, minval=, maxval=) in float32:
+    max(minval, u * (maxval - minval) + minval), the span rounded to
+    float32 first."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    return torch.maximum(lo, cm.fma(uniform(key, shape), span, lo))
+
+
+def _f32(x, like):
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def xla_log(x):
+    """float32 log as XLA's CPU code computes it (the Cephes frexp form
+    with its degree-8 polynomial) for x > 0."""
+    fma = cm.fma
+    tiny = float(torch.finfo(torch.float32).tiny)
+    bits = torch.clamp(x, min=tiny).view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 0x7F).to(torch.float32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    low = m < 0.70710678118654752
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.to(torch.float32)
+    x2 = t * t
+    x3 = x2 * t
+    c = [_f32(v, x) for v in _LOG_P]
+    y = fma(fma(t, c[0], c[1]), t, c[2])
+    y1 = fma(fma(t, c[3], c[4]), t, c[5])
+    y2 = fma(fma(t, c[6], c[7]), t, c[8])
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, _f32(-2.12194440e-4, x) * e)
+    t = fma(_f32(-0.5, x), x2, t) + y
+    return fma(_f32(0.693359375, x), e, t)
+
+
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _horner(x, coeffs):
+    p = torch.zeros_like(x)
+    for v in coeffs:
+        p = cm.fma(p, x, _f32(v, x))
+    return p
+
+
+def xla_log1p(x):
+    """float32 log1p as XLA's CPU code computes it: a Cephes rational
+    form below |x| = sqrt(2) - 1, xla_log(1 + x) above."""
+    x2 = x * x
+    small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = x + cm.fma(_f32(-0.5, x), x2, small)
+    return torch.where(torch.abs(x) < 0.41421356237309504880, small,
+                       xla_log(x + 1.0))
+
+
+# erf_inv's polynomial (Giles), below and above w = 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x):
+    """float32 erf^-1 on (-1, 1), as JAX's erf_inv lowers for float32."""
+    w = -xla_log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, cm.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, _f32(a, x), _f32(b, x))
+        p = c if p is None else cm.fma(p, w, c)
+    return p * x
+
+
+NORMAL_LO = -0.99999994  # nextafter(-1, 0) in float32
+
+
+def normal(key, shape):
+    """jax.random.normal(key, shape): sqrt(2) erf^-1(u), u uniform on
+    (nextafter(-1, 0), 1)."""
+    u = uniform_range(key, shape, NORMAL_LO, 1.0)
+    return _f32(1.4142135623730951, u) * erf_inv(u)
+
+
+def categorical(key, logits, n: int, rows: int = 256):
+    """jax.random.categorical(key, logits [K], shape=(n,)): argmax over K
+    of logits + Gumbel noise -log(-log(u)), u uniform on [tiny, 1), the
+    noise of draw i at counters i K ... i K + K - 1.  Made `rows` draws at
+    a time, so the [n, K] noise never exists whole."""
+    K = logits.shape[0]
+    tiny = float(torch.finfo(torch.float32).tiny)
+    out = []
+    for a in range(0, n, rows):
+        b = min(a + rows, n)
+        counts = torch.arange(a * K, b * K, dtype=torch.int64,
+                              device=key.device)
+        x1, x2 = threefry2x32(key[0], key[1], 0, counts)
+        f = (((x1 ^ x2) >> 9) | 0x3F800000).to(torch.int32).view(
+            torch.float32) - 1.0
+        u = torch.maximum(_f32(tiny, f), f + tiny)
+        g = -xla_log(-xla_log(u))
+        out.append(torch.argmax((g.reshape(b - a, K) + logits[None]), -1))
+    return torch.cat(out)

@@ -12,9 +12,9 @@ Entry points: ``load(path, device=...).render(iterations=...)`` and the
 command line, ``python -m statmc_tpu_torch`` (__main__.py).  Path
 regeneration (make_regen_chunk_fn) renders every sampler mode but the
 lockstep table, which pins the per-sample driver (make_chunk_fn), as
-volpath scenes with media and realistic cameras do; ``ao`` and ``sppm``
-have their own drivers behind ``render/alt_integrators.py``, which
-``load`` dispatches to;
+volpath scenes with media and realistic cameras do; ``ao``, ``sppm``,
+``bdpt`` and ``mlt`` have their own drivers behind
+``render/alt_integrators.py``, which ``load`` dispatches to;
 ``Renderer.render_lockstep_exact`` replays the reference's own draw
 streams; ``denoise_from_disk`` re-filters a written PFM set; and
 ``save_checkpoint``/``restore_checkpoint`` resume a render bit for bit.
@@ -51,8 +51,7 @@ from .stats import moments
 # size changes memory use and launch counts, never results.
 PIXEL_BLOCK = 1 << 20
 
-# The port queue items in ROADMAP.md that the NotImplementedError gates name.
-_ITEM_BDPT = "BDPT and MLT"
+# The port queue item in ROADMAP.md that the NotImplementedError gate names.
 _ITEM_MESH = "Multi-GPU"
 
 
@@ -78,13 +77,6 @@ def _unported(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to statmc_tpu_torch yet "
         f"(ROADMAP.md, port queue: '{item}')")
-
-
-def _check_supported(desc: SceneDescription) -> None:
-    """Refuse every scene feature the port does not render yet, so it
-    never silently renders something else."""
-    if desc.integrator_name in ("bdpt", "mlt"):
-        raise _unported(f'Integrator "{desc.integrator_name}"', _ITEM_BDPT)
 
 
 def _morton_order_scene(scene_np: SceneTables) -> SceneTables:
@@ -136,7 +128,6 @@ def _device(device) -> torch.device:
 def prepare(desc: SceneDescription, base_seed: int = 0, device="cuda",
             strict_assets: bool | None = None) -> RenderSetup:
     device = _device(device)
-    _check_supported(desc)
     scene_np = _morton_order_scene(build_scene(desc, strict=strict_assets))
     n_tris = scene_np.tri_p0.shape[0]
     width = int(desc.film_params.find_one("xresolution", 640))
@@ -717,12 +708,12 @@ class Renderer:
 def load(scene_path: str, base_seed: int = 0, device="cuda",
          strict_assets: bool | None = None) -> Renderer:
     """Parse a pbrt scene and build its Renderer on `device` (the card by
-    default; "cpu" runs the kernels' plain PyTorch versions).  ``ao``
-    and ``sppm`` get their own drivers (render/alt_integrators.py, as
-    statmc_tpu/driver.py:1311-1322 dispatches).  Scene features the port
-    does not render yet raise NotImplementedError."""
+    default; "cpu" runs the kernels' plain PyTorch versions).  ``ao``,
+    ``sppm``, ``bdpt`` and ``mlt`` get their own drivers
+    (render/alt_integrators.py, as statmc_tpu/driver.py:1311-1322
+    dispatches)."""
     desc = parse_scene(scene_path)
-    if desc.integrator_name in ("ao", "sppm"):
+    if desc.integrator_name in ("ao", "sppm", "bdpt", "mlt"):
         from .render.alt_integrators import make_alt_renderer
 
         return make_alt_renderer(desc.integrator_name, desc, base_seed,

@@ -20,7 +20,15 @@ staircase (``count.kd_walk``: one walk, also divided by its steps), the
 staircase under ao (8 probes; ``count.ao_probe``: one probe) and under
 sppm (4,096 photons, maxdepth 5; ``count.sppm_camera_step`` and
 ``count.sppm_photon_step``: one bounce of each pass, the photon step's
-grid deposit included, ``count.sppm_deposit`` apart).
+grid deposit included, ``count.sppm_deposit`` apart), under bdpt
+(maxdepth 5, 1 spp: ``count.bdpt_sample`` is one sample's ops outside
+the ``bdpt.camera_walk``, ``bdpt.light_walk``, ``bdpt.connect`` and
+``bdpt.splat`` ranges, which count the walks, the 26 strategies'
+connections and the t = 1 splats' scatter) and under mlt (maxdepth 5,
+bidirectional, 1,024 chains and a 8,192-path bootstrap: the op counts of
+a step do not depend on the chain count; ``count.mlt_step`` is one
+mutation step's ops outside f's ``bdpt.*`` ranges, ``count.mlt_bootstrap``
+the bootstrap's).
 """
 from __future__ import annotations
 
@@ -34,10 +42,12 @@ from torch.profiler import ProfilerActivity, profile
 from .accel import fused, kdtree, twolevel
 from .core import rng
 from .driver import load
-from .render import ao, integrator, intersect, realistic, sppm, volume
-from .testscenes import (BICONVEX, ao_scene_text, hair_sss_scene_text,
-                         kdtree_scene_text, media_text, realistic_scene_text,
-                         scene_text, sppm_scene_text, volpath_scene_text)
+from .render import (ao, bdpt, integrator, intersect, pssmlt, realistic, sppm,
+                     volume)
+from .testscenes import (BICONVEX, ao_scene_text, bdpt_scene_text,
+                         hair_sss_scene_text, kdtree_scene_text, media_text,
+                         mlt_scene_text, realistic_scene_text, scene_text,
+                         sppm_scene_text, volpath_scene_text)
 
 _PLAIN = "count.plain"  # the intersectors' plain versions: one kernel
 _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
@@ -49,15 +59,20 @@ _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
                               (volume, "intersect_scene"),
                               (ao, "intersect_scene"), (ao, "occluded_scene"),
                               (sppm, "intersect_scene"),
-                              (sppm, "occluded_scene")),
+                              (sppm, "occluded_scene"),
+                              (bdpt, "intersect_scene"),
+                              (bdpt, "occluded_scene")),
           "count.realistic_generate": ((realistic,
                                         "generate_rays_realistic"),),
           "count.kd_walk": ((intersect, "intersect_kdtree"),),
           "count.ao_probe": ((ao.AORenderer, "_probe"),),
           "count.sppm_camera_step": ((sppm.SPPMRenderer, "_camera_step"),),
           "count.sppm_photon_step": ((sppm.SPPMRenderer, "_photon_step"),),
-          "count.sppm_deposit": ((sppm, "deposit_grid"),)}
-_RANGES = ("hair.", "sss.", "volume.", "fourier.", "count.")
+          "count.sppm_deposit": ((sppm, "deposit_grid"),),
+          "count.bdpt_sample": ((bdpt.BDPTRenderer, "one_sample"),),
+          "count.mlt_step": ((pssmlt.MLTRenderer, "step"),),
+          "count.mlt_bootstrap": ((pssmlt.MLTRenderer, "_bootstrap"),)}
+_RANGES = ("hair.", "sss.", "volume.", "fourier.", "bdpt.", "count.")
 
 
 def _ranged(name, fn):
@@ -160,7 +175,12 @@ def main() -> None:
                       nsamples=8, **{**kw, "maxdepth": 1})),
                   ("sppm staircase", sppm_scene_text(
                       photons=4096, **{**kw, "maxdepth": 5,
-                                       "iterations": 1}))]
+                                       "iterations": 1})),
+                  ("bdpt staircase", bdpt_scene_text(
+                      **{**kw, "maxdepth": 5})),
+                  ("mlt staircase", mlt_scene_text(
+                      **{**kw, "maxdepth": 5}))]
+        pssmlt.N_CHAINS, pssmlt.N_BOOTSTRAP = 1024, 8192
         for name, text in scenes:
             kdtree.walk_stats = []
             try:

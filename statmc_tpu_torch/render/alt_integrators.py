@@ -6,9 +6,9 @@ iteration loop, ``render``, ``run_iteration`` (``render_s`` read after a
 synchronize), ``total_spp``, ``buffers``, ``write_outputs`` and
 ``print_stats`` -- so the command line and the PFM outputs work
 unchanged; a subclass supplies the transport in ``_render_iteration``.
-Ported: ``ao`` (render/ao.py) and ``sppm`` (render/sppm.py).  ``bdpt``
-and ``mlt`` are distinct algorithms, never aliased onto path tracing, and
-raise NotImplementedError until they are ported.
+The transports: ``ao`` (render/ao.py), ``sppm`` (render/sppm.py),
+``bdpt`` (render/bdpt.py) and ``mlt`` (render/pssmlt.py); none is aliased
+onto path tracing.
 """
 from __future__ import annotations
 
@@ -121,8 +121,12 @@ def make_alt_renderer(name: str, desc, base_seed: int = 0, device="cuda",
         from .sppm import SPPMRenderer
 
         return SPPMRenderer(desc, base_seed, device, strict_assets)
-    if name in ("bdpt", "mlt"):
-        from ..driver import _ITEM_BDPT, _unported
+    if name == "bdpt":
+        from .bdpt import BDPTRenderer
 
-        raise _unported(f'Integrator "{name}"', _ITEM_BDPT)
+        return BDPTRenderer(desc, base_seed, device, strict_assets)
+    if name == "mlt":
+        from .pssmlt import MLTRenderer
+
+        return MLTRenderer(desc, base_seed, device, strict_assets)
     raise ValueError(f"unknown alternative integrator {name!r}")

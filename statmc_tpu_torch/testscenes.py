@@ -746,3 +746,103 @@ def sppm_scene_text(maxdepth: int = 5, radius: float = 0.05,
         line += f' "integer photonsperiteration" [{photons}]'
     return _with_integrator(scene_text(iterations=iterations,
                                        maxdepth=maxdepth, **kw), line)
+
+
+def bdpt_scene_text(maxdepth: int = 5, iterations: int = 2,
+                    terrain: bool = False, **kw) -> str:
+    """The staircase (its glass sphere under the area-light panel), or the
+    terrain, under Integrator "bdpt"."""
+    text = (terrain_scene_text(iterations=iterations, maxdepth=maxdepth, **kw)
+            if terrain else scene_text(iterations=iterations,
+                                       maxdepth=maxdepth, **kw))
+    return _with_integrator(text, (
+        f'Integrator "bdpt" "integer maxdepth" [{maxdepth}] '
+        f'"integer iterations" [{iterations}] '
+        '"bool expiterations" ["false"]'))
+
+
+def mlt_scene_text(bidirectional: bool = True, maxdepth: int = 5,
+                   iterations: int = 1, **kw) -> str:
+    """The staircase under Integrator "mlt"; bidirectional False mutates
+    the unidirectional path tracer."""
+    flag = "true" if bidirectional else "false"
+    return _with_integrator(scene_text(iterations=iterations,
+                                       maxdepth=maxdepth, **kw), (
+        f'Integrator "mlt" "integer maxdepth" [{maxdepth}] '
+        f'"integer iterations" [{iterations}] '
+        f'"bool expiterations" ["false"] "bool bidirectional" ["{flag}"]'))
+
+
+# The small closed box and the glass caustic of tests/test_bdpt.py:15-88,
+# copied so that the port's tests need not import the JAX package's.
+
+def box_scene_text(integrator: str, spp: int, maxdepth: int = 4,
+                   size: int = 12) -> str:
+    """A closed diffuse box with one ceiling area light."""
+    out = ['Material "matte" "rgb Kd" [0.6 0.55 0.5]\n']
+    walls = [
+        ((-2, -0.2, -2), (2, 0.0, 2)),      # floor
+        ((-2, 2.0, -2), (2, 2.2, 2)),       # ceiling
+        ((-2.2, 0, -2), (-2.0, 2, 2)),      # left
+        ((2.0, 0, -2), (2.2, 2, 2)),        # right
+        ((-2, 0, 1.8), (2, 2, 2.0)),        # back
+    ]
+    for lo, hi in walls:
+        v, f = _box_tris(lo, hi)
+        out.append(_mesh_stmt(v, f))
+    out.append(
+        "AttributeBegin\n"
+        'AreaLightSource "diffuse" "rgb L" [12 12 12]\n'
+        'Material "matte" "rgb Kd" [0 0 0]\n'
+        'Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] '
+        '"point P" [-0.6 1.95 -0.6  0.6 1.95 -0.6  0.6 1.95 0.6  '
+        "-0.6 1.95 0.6]\n"
+        "AttributeEnd\n"
+    )
+    return (
+        f'Integrator "{integrator}" "integer maxdepth" [{maxdepth}] '
+        '"integer iterations" [1] "bool expiterations" ["false"] '
+        '"bool calcstats" ["false"] "bool denoiseimage" ["false"]\n'
+        f'Sampler "random" "integer pixelsamples" [{spp}]\n'
+        f'Film "image" "integer xresolution" [{size}] '
+        f'"integer yresolution" [{size}]\n'
+        "LookAt 0 1 -1.9  0 0.9 0  0 1 0\n"
+        'Camera "perspective" "float fov" [70]\n'
+        "WorldBegin\n" + "".join(out) + "WorldEnd\n"
+    )
+
+
+def glass_caustic_scene_text(integrator: str, spp: int,
+                             size: int = 12) -> str:
+    """A glass sphere between a small bright light and a diffuse floor:
+    the caustic that NEE cannot reach through the glass."""
+    out = ['Material "matte" "rgb Kd" [0.7 0.7 0.7]\n']
+    v, f = _box_tris((-3, -0.2, -3), (3, 0.0, 3))  # floor
+    out.append(_mesh_stmt(v, f))
+    out.append(
+        "AttributeBegin\n"
+        'Material "glass" "float index" [1.5]\n'
+        "Translate 0 1.0 0\n"
+        'Shape "sphere" "float radius" [0.45]\n'
+        "AttributeEnd\n"
+    )
+    out.append(
+        "AttributeBegin\n"
+        'AreaLightSource "diffuse" "rgb L" [400 400 400]\n'
+        'Material "matte" "rgb Kd" [0 0 0]\n'
+        'Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] '
+        '"point P" [-0.1 2.2 -0.1  0.1 2.2 -0.1  0.1 2.2 0.1  '
+        "-0.1 2.2 0.1]\n"
+        "AttributeEnd\n"
+    )
+    return (
+        f'Integrator "{integrator}" "integer maxdepth" [5] '
+        '"integer iterations" [1] "bool expiterations" ["false"] '
+        '"bool calcstats" ["false"] "bool denoiseimage" ["false"]\n'
+        f'Sampler "random" "integer pixelsamples" [{spp}]\n'
+        f'Film "image" "integer xresolution" [{size}] '
+        f'"integer yresolution" [{size}]\n'
+        "LookAt 0 2.4 -2.6  0 0.2 0  0 1 0\n"
+        'Camera "perspective" "float fov" [50]\n'
+        "WorldBegin\n" + "".join(out) + "WorldEnd\n"
+    )

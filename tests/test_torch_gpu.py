@@ -3,8 +3,9 @@ as the backward kernel of denoise/grad.py's FilterApply), an LD-sampler
 render and a textured render on the card against the CPU, the
 environment map's sampling search at 2^20 lanes on the card against the
 CPU, a volpath render on the card against the CPU and B1 on its walks'
-closest-hit calls, and the exact lockstep replay of tiny.pbrt on the card against the
-C++ reference's PFMs.
+closest-hit calls, BDPT and MLT on the card against the CPU (BDPT's
+splats bit for bit in two runs), and the exact lockstep replay of
+tiny.pbrt on the card against the C++ reference's PFMs.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
 and skip without an NVIDIA GPU.  The file imports torch and the port
@@ -789,3 +790,69 @@ def test_sppm_render_card_matches_cpu(cuda, tmp_path):
         films.append((r.tau.cpu(), r.n_acc.cpu()))
     assert torch.equal(films[0][0], films[1][0])
     assert torch.equal(films[0][1], films[1][1])
+
+
+@pytest.mark.gpu
+def test_bdpt_render_card_matches_cpu(cuda, tmp_path):
+    """The bdpt staircase at 32x24 (maxdepth 4, 2 iterations) on the card
+    against the CPU (B1 launches), and iteration 1 run twice on the card
+    (two renderers) bit for bit: the t = 1 splats are summed in lane
+    order, without atomics."""
+    from statmc_tpu_torch import testscenes as TS
+    from statmc_tpu_torch.driver import load
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.bdpt_scene_text(width=32, height=24, spp=1,
+                                       maxdepth=4, iterations=2))
+    _launch_counts(reset=True)
+    _card_against_cpu(str(path))
+    assert _launch_counts()["B1"] > 0
+    runs = []
+    for _ in range(2):
+        r = load(str(path), device="cuda")
+        r.run_iteration(1)
+        runs.append((r.film_sum.cpu(), r.splat_sum.cpu()))
+    assert runs[0][1].sum() > 0
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_mlt_first_step_card_matches_cpu(cuda, bidirectional, tmp_path,
+                                         monkeypatch):
+    """MLT at 32x24 with 512 chains and a 4,096-path bootstrap on the card
+    and on the CPU: the bootstrap's seeded chains and b, then the first
+    mutation step's proposals equal and its accepts and splat per pixel
+    close; the card repeats itself bit for bit."""
+    from statmc_tpu_torch import testscenes as TS
+    from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import pssmlt as PM
+
+    monkeypatch.setattr(PM, "N_CHAINS", 512)
+    monkeypatch.setattr(PM, "N_BOOTSTRAP", 4096)
+    path = tmp_path / "s.pbrt"
+    path.write_text(TS.mlt_scene_text(bidirectional, width=32, height=24,
+                                      spp=1, maxdepth=4))
+    out = {}
+    for dev in ("cuda", "cpu", "cuda"):
+        r = load(str(path), device=dev)
+        r._bootstrap()
+        ch = r.step(r._chains, _mlt_key(dev))
+        out.setdefault(dev, []).append(
+            (r.b, [x.cpu() for x in ch], r.splat.cpu()))
+    (b_g, ch_g, sp_g), (b_g2, ch_g2, sp_g2) = out["cuda"]
+    b_c, ch_c, sp_c = out["cpu"][0]
+    assert b_g == b_g2 and all(torch.equal(a, b) for a, b in zip(ch_g, ch_g2))
+    assert torch.equal(sp_g, sp_g2)
+    assert abs(b_g - b_c) <= 1e-4 * b_c
+    same = (ch_g[0] == ch_c[0]).all(-1).float().mean()
+    assert same >= 0.98
+    close = np.isclose(sp_g.numpy(), sp_c.numpy(), rtol=1e-4, atol=1e-6)
+    assert close.all(-1).mean() >= 0.98
+
+
+def _mlt_key(dev):
+    from statmc_tpu_torch.core import rng as crng
+
+    return crng.base_key(17, device=dev)
