@@ -2,9 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (statmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --kernels  # phases 1-4, 7b and 11 only: the kernels
-                                     # against their plain versions, no
-                                     # main path, no result lines
+    python3 chip_smoke.py --kernels  # phases 1-4a, 7b and 11 only: the
+                                     # kernels against their plain
+                                     # versions, no result lines
+    python3 chip_smoke.py --mesh     # phases 1-4a and 8l only: B1, B2,
+                                     # B2 on halo slabs and the mesh
+                                     # phases, no result lines (both
+                                     # flags: both groups)
     python3 chip_smoke.py --other DIR  # also time B2 and B3 built from the
                                        # tree DIR (say, the parent commit
                                        # unpacked by git archive), in
@@ -23,6 +27,11 @@ and the final line is not printed:
    ids equal on every ray and t equal as bits;
 4. kernel B2 (statistical filter) against its plain version at 1280x720,
    radius 20, C = 3, G = 6, CF = 3, normalized and not;
+4a. kernel B2 on the mesh's halo slabs: inputs of phase 4's kind cut
+   into 2 and 4 row slabs, each extended by 20 rows of its neighbours
+   and by zeros with valid = 0 past the image's edges: the kernel
+   against its plain version on every slab, and the slabs' centre rows
+   equal to the whole image's output bit for bit;
 5. the staircase main path: ``load(scene).render(iterations=2)`` on the
    staircase proxy at 1280x720, maxdepth 8, filter radius 20, albedo +
    normal G-buffers, 4 spp, with B1's and B2's launch counts set to 0
@@ -35,7 +44,7 @@ and the final line is not printed:
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
 7a. samplers: one 1280x720 staircase iteration (2 spp) under random,
-   halton, sobol and 02sequence, twice in turns (rays/s, B1's launches
+   halton, sobol and 02sequence, once each (rays/s, B1's launches
    around each), then 7 under each LD mode and lockstep;
 7b. B2 as the backward kernel of denoise/grad.py's FilterApply: one
    forward + backward at 1280x720, r = 20 (B2's launches counted around
@@ -133,6 +142,26 @@ and the final line is not printed:
    chains; B1 must launch): b, the acceptance rate, the share of large
    steps, steps/s, mutations/s beside the staircase's rays/s, peak
    memory;
+8l. the mesh (statmc_tpu_torch/parallel/), before every profile: the
+    1280x720 staircase with ACRR and SMIS (MESH_SPP = 2 spp, 2
+    iterations, denoised at radius 20) through ``python -m
+    statmc_tpu_torch --mesh 1x1`` in a subprocess (a world of one over
+    NCCL; B1 and B2 from its ``Kernel launches by rank:`` line), then on
+    a 2x2 mesh of four spawned ranks on cuda:0 over gloo (the denoise on
+    halo row slabs; B1 and B2 launched on every rank), both held against
+    the one-device render of the same file through the per-sample
+    driver: n exact, the film after iteration 1 within rtol 1e-4 / atol
+    1e-5 on every pixel; after iteration 2 film, film-f and the ACRR
+    feedback on >= 99.5% of the pixels, the 2x2's feedback against the
+    one-device render continued from the 2x2's iteration-1 feedback,
+    after showing that iteration 1 differs in the Radiance m3 alone and
+    that m3 gives the 2x2's film-f and feedback bit for bit; the 2x2's
+    film-f and feedback equal to the whole-image filter's on its own
+    gathered states on every pixel; each mesh's rays/s beside the
+    per-sample driver's and its collectives' ms an iteration (host clock
+    between synchronizes).  With 4 cards also --mesh 2x2 and --mesh 1x4
+    through the CLI over NCCL, one card a rank, bit for bit equal to the
+    2x2 on one card and to the 1x1;
 8k. each of 8f-8j once more under torch.profiler, device only (after
    all their unprofiled renders): kernels an iteration (the kd-tree's
    one sample of its 2; BDPT's iteration 3, one sample; two MLT steps),
@@ -223,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1409,10 +1439,11 @@ def _write_scene(tmp, name, text):
 
 def phase_samplers(card):
     """One iteration of the 1280x720 staircase under random and each LD
-    sampler, twice in turns (random, halton, sobol, 02sequence, then
-    back; B1's launches counted around each), then the 32x24 proxy under
-    every sampler mode on the card and on the CPU.  Returns {sampler:
-    rays/s, the mean of its two runs}."""
+    sampler, once each (random, halton, sobol, 02sequence; B1's launches
+    counted around each), then the 32x24 proxy under every sampler mode
+    on the card and on the CPU.  Returns {sampler: rays/s}.  (Until the
+    mesh phases joined the run, each sampler ran twice, in turns back;
+    its second run was cut to keep the run inside its time limit.)"""
     import numpy as np
 
     from statmc_tpu_torch.accel import fused as F
@@ -1421,7 +1452,7 @@ def phase_samplers(card):
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         order = ("random",) + LD_SAMPLERS
-        for sampler in order + order[::-1]:
+        for sampler in order:
             path = _write_scene(tmp, f"{sampler}.pbrt", _with_sampler(
                 _scene_text(WIDTH, HEIGHT, SAMPLER_SPP), sampler))
             r = load(path, device="cuda")
@@ -1442,7 +1473,7 @@ def phase_samplers(card):
                   f"launches {launches} [{card}]", flush=True)
             del r
     rates = {k: statistics.mean(v) for k, v in runs.items()}
-    print("samplers, mean rays/s of two runs (the two) against random's: "
+    print("samplers, rays/s against random's: "
           + ", ".join(f"{k} {rates[k] / rates['random']:.3f} ("
                       + ", ".join(f"{x:.0f}" for x in runs[k]) + ")"
                       for k in order) + f" [{card}]", flush=True)
@@ -3277,7 +3308,448 @@ def _bdpt_mlt_results(runs, ms):
     return workflow, per_kernel
 
 
-def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
+# ---------------------------------------------------------------------------
+# The mesh (statmc_tpu_torch/parallel/): ranks over torch.distributed.
+
+# Samples a pixel of both mesh phases and of their one-device reference
+# (the main path's 4, cut to keep the whole run inside its time limit;
+# rays/s hardly depends on the count).
+MESH_SPP = 2
+# After iteration 2, the share of pixels of film, film-f and the ACRR
+# feedback within rtol 1e-4 / atol 1e-5 of the one-device render: an RR
+# or ACRR decision may flip on the rounding of Chan's merge against the
+# serial Meng update.  The 2x2 mesh's feedback is held to the one-device
+# render that took the mesh's iteration-1 feedback (phase_mesh_reference):
+# at one or two samples a pixel m3 is 0 but for its rounding, which
+# differs between the two updates, and the skew correction turns that
+# into other acceptance decisions in iteration 1's denoise.
+MESH_SHARE = 0.995
+MESH_TIMEOUT = 400  # s: a mesh run that takes longer fails its phase
+# The buffers the mesh phases compare: film, film-f, and the Radiance
+# counts and denoised means (the ACRR feedback's source).
+MESH_REGEX = "film|film-f|t0-b[0-9]+-(n|film-mean-f)"
+
+
+def _mesh_text():
+    from statmc_tpu_torch.testscenes import scene_text
+
+    return scene_text(
+        width=WIDTH, height=HEIGHT, spp=MESH_SPP, iterations=2,
+        maxdepth=MAXDEPTH, denoise=True, filtersd=10.0, filterradius=RADIUS,
+        extra_integrator='"bool acrr" ["true"] "bool smis" ["true"] '
+                         f'"string outputregex" ["{MESH_REGEX}"] ')
+
+
+def _halo_slab(x, lo, hi):
+    """Rows [lo, hi) of x, zeros for the rows past its edges."""
+    import torch
+
+    H = x.shape[0]
+    parts = [x.new_zeros((max(0, -lo), *x.shape[1:])),
+             x[max(lo, 0):min(hi, H)],
+             x.new_zeros((max(0, hi - H), *x.shape[1:]))]
+    return torch.cat(parts).contiguous()
+
+
+def phase_b2_halo(rng, card):
+    """Kernel B2 on the mesh's halo slabs: phase_b2's 1280x720, r = 20
+    inputs cut into 2 and 4 row slabs, each extended by r rows of its
+    neighbours and zeros with valid = 0 past the image's edges (what the
+    row-sharded denoise gives each rank).  On every slab the kernel meets
+    its plain version as phase_b2 requires; the slabs' centre rows equal
+    the whole image's kernel output bit for bit.  Returns {slabs: kernel
+    ms over all slabs, plain ms, max |dout|, bound}."""
+    import torch
+
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+
+    mc, d2, fm, gb, valid = _filter_inputs(rng)
+    gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
+    ds, r = -0.5 / 10.0 ** 2, RADIUS
+    whole, _ = FC.run_filter(mc, d2, fm, gb, valid, r, ds, gf)
+    out = {}
+    for n in (2, 4):
+        hl = HEIGHT // n
+        slabs = [tuple(_halo_slab(x, k * hl - r, (k + 1) * hl + r)
+                       for x in (mc, d2, fm, gb, valid)) for k in range(n)]
+        crops, err, plain_ms, pairs, accepted = [], 0.0, 0.0, 0, 0
+        nbytes = 0
+        for args in slabs:
+            o_k, w_k = FC.run_filter(*args, r, ds, gf)
+            nbytes += _nbytes(*args, o_k, w_k)
+            (o_p, w_p), p_ms = _once_ms(
+                lambda: FC.run_filter_plain(*args, r, ds, gf))
+            torch.testing.assert_close(o_k, o_p, rtol=1e-4, atol=1e-6)
+            torch.testing.assert_close(w_k, w_p, rtol=1e-4, atol=1e-6)
+            err = max(err, float((o_k - o_p).abs().max()))
+            plain_ms += p_ms
+            crops.append(o_k[r:r + hl])
+            p, a = _filter_pairs(args[0], args[1], r)
+            pairs, accepted = pairs + p, accepted + a
+        if not torch.equal(torch.cat(crops), whole):
+            raise AssertionError(f"B2 halo, {n} slabs: the centre rows "
+                                 "differ from the whole image's output")
+        ms = _median_ms(lambda: [FC.run_filter(*a, r, ds, gf)
+                                 for a in slabs])
+        bound_ms, bound_by = _bound(
+            pairs * B2_OPS_REJECT + accepted * (B2_OPS_ACCEPT - B2_OPS_REJECT),
+            nbytes)
+        print(f"B2 halo slabs: {WIDTH}x{HEIGHT} r={r} in {n} slabs of "
+              f"{hl}+2x{r} rows, valid = 0 past the edges: max |dout| "
+              f"{err:.3e}, centre rows equal the whole image's bit for bit;"
+              f" kernel {ms:.3f} ms over the {n} slabs, plain "
+              f"{plain_ms:.3f} ms (once each), bound {bound_ms:.3f} ms "
+              f"({bound_by}; {bound_ms / ms:.3f} of the kernel's time) "
+              f"[{card}]", flush=True)
+        out[n] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms,
+                      bound_by=bound_by)
+    return out
+
+
+def _cli_lines(text, tag):
+    return [ln[len(tag):] for ln in text.splitlines() if ln.startswith(tag)]
+
+
+def phase_mesh_cli(card, path, tmp, n_spp, n_px):
+    """python -m statmc_tpu_torch --mesh SPPxPX --writeimages in a
+    subprocess: a world of n_spp * n_px ranks over NCCL, one card a rank,
+    renders and denoises the 1280x720 staircase with ACRR and SMIS
+    (MESH_SPP spp, 2 iterations).  B1 and B2 must launch on every rank
+    (its ``Kernel launches by rank:`` line).  Returns the output
+    directory, rank 0's launches, every rank's, and per-iteration times,
+    rays and collectives."""
+    tag = f"{n_spp}x{n_px}"
+    outdir = os.path.join(tmp, f"mesh{tag}")
+    cmd = [sys.executable, "-m", "statmc_tpu_torch", path, "--mesh", tag,
+           "--writeimages", "--outdir", outdir]
+    t0 = time.perf_counter()
+    # In a session of its own, so that a timeout stops the ranks the
+    # command started along with it.
+    with subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True,
+                          start_new_session=True) as p:
+        try:
+            stdout, stderr = p.communicate(timeout=MESH_TIMEOUT)
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    proc = subprocess.CompletedProcess(cmd, p.returncode, stdout, stderr)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh {tag}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    counts = _cli_lines(proc.stderr, "Kernel launches: ")
+    by_rank = _cli_lines(proc.stderr, "Kernel launches by rank: ")
+    if len(counts) != 1 or len(by_rank) != 1:
+        raise AssertionError(f"mesh {tag}: launch lines\n"
+                             f"{proc.stderr[-2000:]}")
+    launches, by_rank = json.loads(counts[0]), json.loads(by_rank[0])
+    if len(by_rank) != n_spp * n_px or any(
+            c["B1"] <= 0 or c["B2"] <= 0 for c in by_rank):
+        raise AssertionError(f"mesh {tag}: launches by rank {by_rank}")
+    its = [{"render_s": int(a) * 1e-9, "denoise_s": int(b) * 1e-9,
+            "rays_total": int(c), "comm_s": {
+                k: v * 1e-9 for k, v in json.loads(d).items()}}
+           for a, b, c, d in zip(
+               _cli_lines(proc.stdout, "Rendering time [ns]: "),
+               _cli_lines(proc.stdout, "CUDA time [ns]: "),
+               _cli_lines(proc.stdout, "Rays traced: "),
+               _cli_lines(proc.stdout, "Collectives time [ns]: "))]
+    if len(its) != 2:
+        raise AssertionError(f"mesh {tag}: iteration lines\n{proc.stdout}")
+    print(f"mesh {tag}: python -m statmc_tpu_torch --mesh {tag} (NCCL, "
+          f"{n_spp * n_px} rank(s), one card each), {WIDTH}x{HEIGHT}, "
+          f"{MESH_SPP} spp, 2 iterations, denoised: rc 0 in {wall:.1f} s; "
+          f"launches by rank {by_rank} [{card}]", flush=True)
+    return {"outdir": outdir, "launches": launches, "by_rank": by_rank,
+            "its": its, "wall_s": wall}
+
+
+def phase_mesh_2x2(card, path, tmp):
+    """load(path, mesh=make_mesh(2, 2, devices=[cuda:0] * 4)) in four
+    spawned ranks on one card over gloo (parallel/launch.py render_task):
+    samples strided over 2 ranks, rows over 2 (the denoise on halo
+    slabs, B2 with valid zeros).  B1 and B2 must launch on every rank.
+    Returns rank 0's whole-image results per iteration, with every moment
+    state."""
+    import torch
+
+    from statmc_tpu_torch.parallel import launch
+
+    out = os.path.join(tmp, "mesh2x2.pt")
+    t0 = time.perf_counter()
+    launch.run_world(launch.render_task, 2, 2, (path, out, None, 0, True),
+                     devices=["cuda:0"] * 4, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    got = torch.load(out, weights_only=False)
+    if any(c["B1"] <= 0 or c["B2"] <= 0 for c in got["launches"]):
+        raise AssertionError(f"mesh 2x2: launches {got['launches']}")
+    if got["denoise"] != "slabs":
+        raise AssertionError(f"mesh 2x2: denoise {got['denoise']}")
+    print(f"mesh 2x2 on one card: 4 ranks on cuda:0 over gloo, {WIDTH}x"
+          f"{HEIGHT}, {MESH_SPP} spp, 2 iterations, denoised on halo row "
+          f"slabs: {wall:.1f} s with the ranks' start; launches by rank "
+          f"{got['launches']} [{card}]", flush=True)
+    got["wall_s"] = wall
+    return got
+
+
+def _share(a, b):
+    """Share of pixels (rows of [P, C]) within rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    a = a.reshape(b.shape[0], -1)
+    return float(torch.isclose(a, b.reshape(a.shape), rtol=1e-4,
+                               atol=1e-5).all(-1).float().mean())
+
+
+def _mesh_disk(outdir, n_spp, P, NB, NL):
+    """A CLI mesh run's written buffers after the iteration that reaches
+    n_spp samples a pixel: film, film-f, the Radiance n and film-mean-f
+    by bounce, and the ACRR feedback from the latter (as
+    driver._feedback)."""
+    import torch
+
+    from statmc_tpu_torch.core import spectrum as spec
+    from statmc_tpu_torch.io.pfm import read_pfm
+
+    def disk(name):
+        return torch.as_tensor(read_pfm(os.path.join(
+            outdir, f"staircase-proxy-{n_spp}-{name}.pfm")))
+
+    fmf = torch.stack([disk(f"t0-b{b}-film-mean-f").reshape(P, 3)
+                       for b in range(NB)])
+    avg = spec.luminance(fmf).T
+    avg = torch.nn.functional.pad(avg, (0, max(0, NL - avg.shape[1])))
+    return {"film": disk("film").reshape(P, 3),
+            "film_f": disk("film-f").reshape(P, 3), "avg_ls": avg[:, :NL],
+            "film_mean_f": fmf,
+            "n": torch.stack([disk(f"t0-b{b}-n").reshape(P, 1)
+                              for b in range(NB)])}
+
+
+def _snapshot(r):
+    """What one iteration of the renderer r changes, copied."""
+    return ({t: {k: v.clone() for k, v in st.items()}
+             for t, st in r.states.items()},
+            {k: getattr(r, k).clone() for k in (
+                "film_sum", "film_w", "avg_ls", "win_b", "win_l",
+                "ray_total")},
+            {k: v.clone() for k, v in r.stats.items()})
+
+
+def _restore(r, snap):
+    states, tensors, stats = snap
+    for t, st in states.items():
+        for k, v in st.items():
+            r.states[t][k].copy_(v)
+    for k, v in tensors.items():
+        setattr(r, k, v.clone())
+    r.stats = {k: v.clone() for k, v in stats.items()}
+
+
+def phase_mesh_reference(card, path, m1, m2, main_rate):
+    """The one-device render of the mesh phases' file through the
+    per-sample driver (driver.make_chunk_fn: the sample step the mesh
+    strides, equal to path regeneration bit for bit), held against both
+    meshes: n exact on every pixel; after iteration 1 the film within
+    rtol 1e-4 / atol 1e-5 on every pixel; after iteration 2 the film,
+    film-f and ACRR feedback (avg_ls; the 1x1 mesh's from its written
+    film-mean-f) of the 1x1, and the film and film-f of the 2x2, on >=
+    MESH_SHARE of the pixels; every share printed.
+
+    The 2x2's feedback is held by its cause.  After iteration 1 every
+    moment field of the 2x2 equals the reference's bit for bit but the
+    Radiance m3; with the 2x2's m3 in the reference's states, the
+    reference's own denoise gives the 2x2's film-f and feedback (avg_ls,
+    win_b, win_l) bit for bit.  From there the reference renders
+    iteration 2 again, with the mesh's feedback, and the 2x2's film,
+    film-f and feedback meet it on >= MESH_SHARE of the pixels.  After
+    iteration 2 the 2x2's film-f and feedback equal, on every pixel, what
+    the whole-image filter gives on its gathered states: the halo slabs
+    filter as the whole image does.  Prints the rays/s of both meshes
+    beside the per-sample driver's (and path regeneration's, from the
+    staircase main path at 4 spp), and each mesh's collectives' ms an
+    iteration."""
+    import torch
+
+    from statmc_tpu_torch.driver import load, make_chunk_fn
+    from statmc_tpu_torch.stats import estimator as E
+
+    r = load(path, device="cuda")
+    r.progress = False
+    r.chunk_fn = make_chunk_fn(r.s)
+    NL, P, H, W = r.s.icfg.n_ls, r.P, r.s.height, r.s.width
+    NB = r.states[E.RADIANCE]["n"].shape[0]
+    one = [_mesh_disk(m1["outdir"], r.total_spp(i), P, NB, NL)
+           for i in (1, 2)]
+    two = m2["iterations"]
+    shares, logs = {}, []
+
+    def ref():
+        return {"film": r.film_mean.cpu(),
+                "film_f": r.film_f.reshape(-1, 3).cpu(),
+                "avg_ls": r.avg_ls.cpu()}
+
+    def hold(tag, got, need):
+        for k, v in ref().items():
+            s = _share(got[k], v)
+            shares[f"{tag} {k}"] = s
+            if s < need.get(k, 0.0):
+                raise AssertionError(f"mesh {tag} {k}: {s:.6f} of pixels, "
+                                     f"need {need[k]}")
+
+    def equal(tag, got, want):
+        for k, v in want.items():
+            if not torch.equal(got[k].cpu(), v.cpu()):
+                raise AssertionError(f"mesh {tag}: {k} differs")
+
+    for i in (1, 2):
+        logs.append(r.run_iteration(i))
+        n = r.states[E.RADIANCE]["n"].cpu()
+        for mesh, got in (("1x1", one[i - 1]), ("2x2", two[i - 1])):
+            if not torch.equal(got["n"].reshape(n.shape), n):
+                raise AssertionError(f"mesh {mesh} iteration {i}: n differs")
+            # Iteration 1's film-f and feedback are printed, not held.
+            hold(f"{mesh} it{i}", got,
+                 {"film": 1.0} if i == 1 else
+                 {"film": MESH_SHARE, "film_f": MESH_SHARE,
+                  "avg_ls": MESH_SHARE if mesh == "1x1" else 0.0})
+        if i == 1:
+            for t, st in r.states.items():
+                for k, v in st.items():
+                    if (t, k) != (E.RADIANCE, "m3"):
+                        equal(f"2x2 it1 state {t}", two[0]["states"][t],
+                              {k: v})
+            it1 = _snapshot(r)
+    # The whole-image filter on the 2x2's gathered iteration-2 states.
+    states = {t: {k: v.cuda() for k, v in st.items()}
+              for t, st in two[1]["states"].items()}
+    derived, film_f = r._filter(states, two[1]["film"].cuda().reshape(
+        H, W, 3), H)
+    equal("2x2 it2 slabs against the whole-image filter", two[1],
+          {"film_f": film_f.reshape(-1, 3), "avg_ls": r._feedback(derived)[0]})
+    del states, derived, film_f
+    # Iteration 1 again, with the 2x2's Radiance m3.
+    _restore(r, it1)
+    r.states[E.RADIANCE]["m3"].copy_(two[0]["states"][E.RADIANCE]["m3"])
+    r._denoise()
+    equal("2x2 it1 with its m3 in the one-device states", two[0],
+          {"film_f": r.film_f.reshape(-1, 3), "avg_ls": r.avg_ls,
+           "win_b": r.win_b, "win_l": r.win_l})
+    r.run_iteration(2)
+    hold("2x2 it2 against the one-device it2 from its it1 feedback", two[1],
+         {k: MESH_SHARE for k in ("film", "film_f", "avg_ls")})
+    rates = {"per_sample": (logs[1]["rays_total"] - logs[0]["rays_total"])
+             / logs[1]["render_s"], "regeneration": main_rate}
+    comm = {}
+    for mesh, its in (("1x1", m1["its"]), ("2x2", [x["log"] for x in two])):
+        rates[mesh], comm[mesh] = _mesh_rate(card, mesh, its, rates)
+    print("mesh shares of pixels against the one-device render: "
+          + json.dumps({k: round(v, 6) for k, v in shares.items()}),
+          flush=True)
+    return {"rays_per_s": rates, "collectives_ms": comm, "shares": shares,
+            "one": one}
+
+
+def _mesh_rate(card, mesh, its, rates):
+    """A mesh's rays/s and collectives' ms in iteration 2, printed beside
+    the one-device drivers' rays/s."""
+    rays = its[1]["rays_total"] - its[0]["rays_total"]
+    rate = rays / its[1]["render_s"]
+    comm = {k: v * 1e3 for k, v in its[1]["comm_s"].items()}
+    main_rate = rates["regeneration"]
+    print(f"mesh {mesh} iteration 2: {rays:.0f} rays in "
+          f"{its[1]['render_s']:.3f} s = {rate:.1f} rays/s, "
+          f"{rate / rates['per_sample']:.3f}x the per-sample driver's "
+          f"{rates['per_sample']:.1f} (path regeneration "
+          + (f"{main_rate:.1f} at {SPP} spp" if main_rate
+             else "not measured in this run")
+          + "); collectives ms in it "
+          + json.dumps({k: round(v, 3) for k, v in comm.items()})
+          + f", denoise {its[1]['denoise_s'] * 1e3:.1f} ms [{card}]",
+          flush=True)
+    return rate, comm
+
+
+def phase_mesh_cards(card, path, tmp, m1, m2, ref):
+    """With 4 cards: --mesh 2x2 and --mesh 1x4 through the CLI, one card
+    a rank over NCCL (all_gather, all_reduce and the halo's
+    batch_isend_irecv between cards).  The 1x4 writes every buffer the
+    1x1 wrote bit for bit (a "spp" group of one merges as the 1x1 does,
+    and the halo slabs filter as the whole image does); the 2x2 gives
+    the film, film-f, n and Radiance film-mean-f of the 2x2 on one card
+    bit for bit (the same merge order over another transport).  Prints
+    their rays/s and collectives' ms.  With fewer cards it says so and
+    returns None."""
+    import numpy as np
+    import torch
+
+    from statmc_tpu_torch.io.pfm import read_pfm
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"mesh on 4 cards: not run, {cards} card(s) [{card}]",
+              flush=True)
+        return None
+    one = ref["one"][0]
+    P, NB, NL = one["film"].shape[0], one["n"].shape[0], one["avg_ls"].shape[1]
+    out = {}
+    for n_spp, n_px in ((2, 2), (1, 4)):
+        tag = f"{n_spp}x{n_px}"
+        got = phase_mesh_cli(card, path, tmp, n_spp, n_px)
+        if tag == "1x4":
+            names = sorted(os.listdir(m1["outdir"]))
+            if sorted(os.listdir(got["outdir"])) != names:
+                raise AssertionError("mesh 1x4: its buffers are not the "
+                                     "1x1's")
+            for name in names:
+                if not np.array_equal(
+                        read_pfm(os.path.join(got["outdir"], name)),
+                        read_pfm(os.path.join(m1["outdir"], name))):
+                    raise AssertionError(f"mesh 1x4: {name} differs from "
+                                         "the 1x1's")
+        else:
+            for i, it in enumerate(m2["iterations"], 1):
+                disk = _mesh_disk(got["outdir"], MESH_SPP * i, P, NB, NL)
+                for k in ("film", "film_f", "n", "film_mean_f"):
+                    if not torch.equal(disk[k], it[k].reshape(disk[k].shape)):
+                        raise AssertionError(
+                            f"mesh 2x2 over NCCL iteration {i}: {k} differs "
+                            "from the 2x2 on one card's")
+        got["rate"], got["comm"] = _mesh_rate(card, f"{tag} on 4 cards",
+                                              got["its"], ref["rays_per_s"])
+        out[tag] = got
+    print("mesh on 4 cards: the 1x4's buffers equal the 1x1's and the "
+          f"2x2's those of the 2x2 on one card, bit for bit [{card}]",
+          flush=True)
+    return out
+
+
+def _mesh_phases(card, phase, main_rate):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_scene(tmp, "mesh.pbrt", _mesh_text())
+        m1 = phase("mesh 1x1", phase_mesh_cli, card, path, tmp, 1, 1)
+        m2 = phase("mesh 2x2 on one card", phase_mesh_2x2, card, path, tmp)
+        res = phase("mesh reference", phase_mesh_reference, card, path, m1,
+                    m2, main_rate)
+        for it in m2["iterations"]:
+            it["states"] = None
+        m4 = phase("mesh on 4 cards", phase_mesh_cards, card, path, tmp, m1,
+                   m2, res)
+    del res["one"]
+    res["launches"] = {"1x1": m1["launches"], "2x2": m2["launches"]}
+    for k, v in (m4 or {}).items():
+        res["launches"][f"{k}_4cards"] = v["by_rank"]
+        res["rays_per_s"][f"{k}_4cards"] = v["rate"]
+        res["collectives_ms"][f"{k}_4cards"] = v["comm"]
+    return res
+
+
+def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
+    """only: the groups of phases to run after phase 4a ("kernels",
+    "mesh"); all phases when empty."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3311,11 +3783,18 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
              if other_tree else None)
     b1 = phase("B1", phase_b1, rng, card)
     b2 = phase("B2", phase_b2, rng, card, other)
-    if kernels_only:
-        phase("B2 backward", phase_b2_backward, card)
-        phase("B3/B4", phase_b3_b4, rng, card,
-              phase("terrain setup", _terrain_renderer)[0].s, other)
-        print("kernels only: no main path driven, no result lines",
+    # Inputs of phase B2's kind from a generator of their own, so the
+    # later phases' random inputs stay those of earlier runs.
+    b2h = phase("B2 halo slabs", phase_b2_halo, np.random.default_rng(SEED),
+                card)
+    if only:
+        if "kernels" in only:
+            phase("B2 backward", phase_b2_backward, card)
+            phase("B3/B4", phase_b3_b4, rng, card,
+                  phase("terrain setup", _terrain_renderer)[0].s, other)
+        if "mesh" in only:
+            _mesh_phases(card, phase, None)
+        print(f"only {' and '.join(sorted(only))}: no result lines",
               flush=True)
         return 0
     # Both main paths run before the first profile: once torch.profiler
@@ -3355,6 +3834,9 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                      terrain_rays)
     bm = _bdpt_mlt_paths(card, phase, stair_s, stair_rays, render_s,
                          terrain_rays)
+    # Before the profiles, as the main paths: the mesh's rays/s stands
+    # beside the per-sample driver's, timed in this process.
+    mesh = _mesh_phases(card, phase, stair_rays / stair_s)
     path_ms, stair_whole = phase("staircase profile", phase_staircase_profile,
                                  card, rs, stair_s)
     del rs
@@ -3438,7 +3920,11 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
          "backward_max_abs_err": b2b["err"],
          "backward_bound_ms": b2b["bound_ms"],
          "backward_bound_by": b2b["bound_by"],
-         "forward_backward_ms": b2b["fwd_bwd_ms"]},
+         "forward_backward_ms": b2b["fwd_bwd_ms"],
+         # On the mesh's row slabs, halo-extended with valid = 0 past the
+         # image's edges: kernel ms over all slabs of a 2- and a 4-way cut.
+         **{f"halo{n}_{k}": v for n, res in b2h.items()
+            for k, v in res.items()}},
         # B3/B4: ms and bound_ms on all `blocks` of the camera rays;
         # plain_ms on the `plain_blocks` blocks where the two were
         # compared (all for B3), and for B4 the kernel's subset_ms on them.
@@ -3480,6 +3966,14 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
                   "volpath_terrain_main_path_ms": vt_ms.get(b)})
         k.update(new_kernels[b])
         k.update(bm_kernels[b])
+        # The mesh phases: the 1x1 CLI's own count, each 2x2 rank's, and
+        # with 4 cards each rank's of the 2x2 and 1x4 over NCCL.
+        k.update({"mesh_1x1_launches": mesh["launches"]["1x1"][b],
+                  "mesh_2x2_launches": [c[b] for c in
+                                        mesh["launches"]["2x2"]],
+                  **{f"mesh_{m}_launches": [c[b] for c in mesh["launches"][m]]
+                     for m in ("2x2_4cards", "1x4_4cards")
+                     if m in mesh["launches"]}})
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,
@@ -3495,7 +3989,9 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
         "volpath_render_s": vp_log["render_s"],
         "volpath_rays_per_s": vp_rate,
         "volpath_walk_calls_checked": walk_checked, **new_workflow,
-        **bm_workflow}}))
+        **bm_workflow, "mesh_rays_per_s": mesh["rays_per_s"],
+        "mesh_collectives_ms": mesh["collectives_ms"],
+        "mesh_shares": mesh["shares"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3505,6 +4001,7 @@ def main(kernels_only: bool = False, other_tree: str | None = None) -> int:
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
-    sys.exit(main(kernels_only="--kernels" in argv,
+    sys.exit(main(only=frozenset(g for g in ("kernels", "mesh")
+                                 if f"--{g}" in argv),
                   other_tree=(argv[argv.index("--other") + 1]
                               if "--other" in argv else None)))

@@ -42,22 +42,56 @@ def corrected_stats(n, mean, m2, m3, tq):
 
 
 def stat_filter(n, mean, m2, m3, film_mean, gb_planes, gb_factors,
-                ds_factor: float, tq, radius: int, film_img=None) -> dict:
+                ds_factor: float, tq, radius: int, film_img=None,
+                valid=None) -> dict:
     """n [H,W], mean/m2/m3/film_mean [H,W,C], gb_planes [H,W,G] with one
-    factor -0.5/sigma^2 per plane.  Returns mean_corr, discriminator,
-    film_mean_f (and film_f when film_img [H,W,3] is given)."""
+    factor -0.5/sigma^2 per plane; valid [H,W] 0/1 weighs each pixel as a
+    neighbour (all ones when None; a halo slab's rows past the image's
+    edges are 0).  Returns mean_corr, discriminator, film_mean_f (and
+    film_f when film_img [H,W,3] is given)."""
     H, W, C = mean.shape
     mc, disc = corrected_stats(n, mean, m2, m3, tq)
     fstack = film_mean if film_img is None else torch.cat(
         [film_mean, film_img], -1)
     out, _ = run_filter(
         mc.contiguous(), (disc * disc).contiguous(), fstack.contiguous(),
-        gb_planes.contiguous(), torch.ones((H, W), device=mean.device),
-        radius, ds_factor, gb_factors)
+        gb_planes.contiguous(),
+        torch.ones((H, W), device=mean.device) if valid is None
+        else valid.contiguous(), radius, ds_factor, gb_factors)
     res = dict(mean_corr=mc, discriminator=disc, film_mean_f=out[..., :C])
     if film_img is not None:
         res["film_f"] = out[..., C:]
     return res
+
+
+def halo_extend(halo, gb_planes):
+    """A row slab's validity mask and G-buffer planes [h,W,G] extended by
+    `halo`, an exchange [h,W,K] -> [h+2r,W,K] (a mesh's rows of the "px"
+    neighbours, zeros past the image's edges): (valid [h+2r,W], planes
+    [h+2r,W,G]); valid is 0 on the rows past the image's edges."""
+    h, W = gb_planes.shape[:2]
+    valid = halo(gb_planes.new_ones((h, W, 1)))[..., 0]
+    return valid, halo(gb_planes)
+
+
+def stat_filter_slab(halo, valid, n, mean, m2, m3, film_mean, gb_planes,
+                     gb_factors, ds_factor: float, tq, radius: int,
+                     film_img=None) -> dict:
+    """stat_filter on a row slab of h rows (statmc_tpu/denoise/
+    filter_jax.py:250-310): n [h,W], mean/m2/m3/film_mean [h,W,C] and
+    film_img [h,W,3] are extended by `halo` in one exchange; valid and
+    gb_planes come extended (halo_extend).  Returns stat_filter's outputs
+    cropped back to the slab's rows."""
+    h, C = n.shape[0], mean.shape[-1]
+    parts = [n[..., None], mean, m2, m3, film_mean] + (
+        [film_img] if film_img is not None else [])
+    ext = halo(torch.cat(parts, -1))
+    n_e, mean_e, m2_e, m3_e, fm_e = (
+        ext[..., 0], *torch.split(ext[..., 1:1 + 4 * C], C, -1))
+    film_e = ext[..., 1 + 4 * C:] if film_img is not None else None
+    res = stat_filter(n_e, mean_e, m2_e, m3_e, fm_e, gb_planes, gb_factors,
+                      ds_factor, tq, radius, film_img=film_e, valid=valid)
+    return {k: v[radius:radius + h] for k, v in res.items()}
 
 
 class StatDenoiser:
@@ -73,30 +107,39 @@ class StatDenoiser:
             -0.5 / (ecfg.filter_sd * ecfg.filter_sd)))
         self.radius = int(ecfg.filter_radius)
 
-    def _gbuffers(self, states):
+    def _gbuffers(self, states, height=None):
         """Enabled filter G-buffer means as planes [H,W,G] and one range
-        factor per plane."""
+        factor per plane; `height` overrides H (a mesh's row slab)."""
+        H = self.H if height is None else height
         planes, pfac = [], []
         for t in (E.STAT_MATERIAL_ID, E.STAT_DEPTH, E.STAT_NORMAL,
                   E.STAT_ALBEDO):
             c = self.ecfg.configs[t]
             if c.enable and c.enable_for_filter and t in states:
                 fm = states[t].get("film_mean", states[t]["mean"])[0]
-                planes.append(fm.reshape(self.H, self.W, c.n_channels))
+                planes.append(fm.reshape(H, self.W, c.n_channels))
                 pfac.extend([-0.5 / (c.filter_sd * c.filter_sd)]
                             * c.n_channels)
         if planes:
             return torch.cat(planes, -1), tuple(pfac)
-        return torch.zeros((self.H, self.W, 0), device=self.tq.device), ()
+        return torch.zeros((H, self.W, 0), device=self.tq.device), ()
 
-    def __call__(self, state: dict, film, gbufs) -> dict:
+    def __call__(self, state: dict, film, gbufs, halo=None) -> dict:
         """Filter all bounce buffers of one stat type.  state: moment
-        state [NB,P,C]; film: [H,W,3] film image for Radiance (or None);
-        gbufs: `_gbuffers(states)`.  Returns [NB,P,C] buffers + film_f."""
-        H, W = self.H, self.W
+        state [NB,P,C] of P = H W pixels (or of a row slab); film: [H,W,3]
+        film image for Radiance (or None); gbufs: `_gbuffers(states)`.
+        Returns [NB,P,C] buffers + film_f.
+
+        halo: an exchange [h,W,K] -> [h+2r,W,K] (a mesh's rows of the "px"
+        neighbours, zeros past the image's edges): each bounce is filtered
+        on the halo-extended slab and cropped back (stat_filter_slab)."""
+        W = self.W
         NB = state["n"].shape[0]
         C = state["mean"].shape[-1]
+        H = state["n"].shape[1] // W
         gb_planes, gf = gbufs
+        if halo is not None:
+            valid, gb_planes = halo_extend(halo, gb_planes)
         outs = {"mean_corr": [], "discriminator": [], "film_mean_f": []}
         film_f = None
         # Reference aliasing (estimator.cpp:143-146, RGB path): Radiance
@@ -114,9 +157,14 @@ class StatDenoiser:
             want_film_alias = fi is not None and alias_film
             if want_film_alias:
                 fi = None
-            res = stat_filter(n_img, mean, m2, m3, fm, gb_planes, gf,
-                              self.ds_factor, self.tq, self.radius,
-                              film_img=fi)
+            if halo is None:
+                res = stat_filter(n_img, mean, m2, m3, fm, gb_planes, gf,
+                                  self.ds_factor, self.tq, self.radius,
+                                  film_img=fi)
+            else:
+                res = stat_filter_slab(halo, valid, n_img, mean, m2, m3, fm,
+                                       gb_planes, gf, self.ds_factor,
+                                       self.tq, self.radius, film_img=fi)
             for k in outs:
                 outs[k].append(res[k].reshape(-1, C))
             if fi is not None:

@@ -97,3 +97,50 @@ def mean_variance(state: dict, film: bool = False):
     n = state["n"]
     m2 = state["film_m2"] if film and "film_m2" in state else state["m2"]
     return m2 / torch.clamp((n - 1.0) * n, min=1.0)
+
+
+def combine(a: dict, b: dict) -> dict:
+    """Chan et al.'s pairwise combine of two moment states over the same
+    pixels (statmc_tpu/stats/moments.py:123), in its operation order."""
+    na, nb = a["n"], b["n"]
+    n = na + nb
+    n_safe = torch.clamp(n, min=1.0)
+    d = b["mean"] - a["mean"]
+    dn = d / n_safe
+    out = {"n": n, "mean": a["mean"] + nb * dn}
+    if "m2" in a:
+        out["m2"] = a["m2"] + b["m2"] + d * dn * na * nb
+        if "m3" in a:
+            out["m3"] = (a["m3"] + b["m3"]
+                         + d * dn * dn * na * nb * (na - nb)
+                         + 3.0 * dn * (na * b["m2"] - nb * a["m2"]))
+    if "film_mean" in a:
+        fd = b["film_mean"] - a["film_mean"]
+        fdn = fd / n_safe
+        out["film_mean"] = a["film_mean"] + nb * fdn
+        out["film_m2"] = a["film_m2"] + b["film_m2"] + fd * fdn * na * nb
+    return out
+
+
+def combine_across(state: dict, group=None) -> dict:
+    """Merge the moment states of the members of a torch.distributed
+    group (statmc_tpu/stats/moments.py:150 combine_across_axis): gather
+    every member's state, then combine them in the group's rank order,
+    member 0 first.  A group of one returns the state itself."""
+    from ..parallel import comm
+
+    if comm.size(group) == 1:
+        return state
+    keys = list(state)
+    flat = torch.cat([state[k].reshape(-1) for k in keys])
+    members = []
+    for g in comm.all_gather(flat, group):
+        st, o = {}, 0
+        for k in keys:
+            st[k] = g[o:o + state[k].numel()].reshape(state[k].shape)
+            o += state[k].numel()
+        members.append(st)
+    acc = members[0]
+    for m in members[1:]:
+        acc = combine(acc, m)
+    return acc

@@ -4,8 +4,9 @@ lines), --denoise from disk (tests/test_driver.py:64-81's tolerance,
 rtol 1e-4 / atol 1e-5), PFMs that one package wrote filtered by the
 other, checkpoints (tests/test_checkpoint.py in torch: a resumed render
 equals an uninterrupted one bit for bit), a render resumed from the JAX
-package's state (convert.renderer_state), the statistics block, and
---mesh, which is not ported.  Renders run on the CPU (--device cpu)."""
+package's state (convert.renderer_state), the statistics block, and the
+refusals without a card (--mesh itself: test_torch_mesh_cli.py).
+Renders run on the CPU (--device cpu)."""
 import contextlib
 import io
 import os
@@ -226,10 +227,12 @@ def test_print_stats_text(staircase):
 
 
 def test_mesh_and_missing_cuda_raise(staircase):
+    """Without a card the CLI refuses the default device, and a --mesh on
+    cards it does not have (--mesh itself runs: test_torch_mesh_cli.py)."""
     path, tmp = staircase
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        TM.main([path, "--mesh", "1x2", "--device", "cpu"])
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
+            TM.main([path, "--mesh", "1x2", "--outdir", str(tmp / "x")])
         # The card is the default device; without one the CLI refuses.
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TM.main([path, "--outdir", str(tmp / "x")])

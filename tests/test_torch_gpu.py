@@ -856,3 +856,42 @@ def _mlt_key(dev):
     from statmc_tpu_torch.core import rng as crng
 
     return crng.base_key(17, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_spp,n_px", [(1, 1), (2, 2)])
+def test_mesh_on_the_card_matches_one_device(cuda, n_spp, n_px, tmp_path):
+    """Renderer(mesh=) on the card: a world of one over NCCL, and 2x2 with
+    four ranks on cuda:0 over gloo (row slabs with a halo exchange),
+    against the one-device render of a 32x24 staircase with ACRR, SMIS
+    and a denoise: n exact; after iteration 1 film within rtol 1e-4 /
+    atol 1e-5 on every pixel; after iteration 2 film, film-f and the ACRR
+    feedback on >= 99.5% (the filter's skew correction and an RR or ACRR
+    decision may turn on the rounding of Chan's merge against Meng's);
+    B1 and B2 launched on every rank."""
+    from statmc_tpu_torch import driver as TD
+    from statmc_tpu_torch.parallel import launch
+    from statmc_tpu_torch.testscenes import scene_text
+
+    path = tmp_path / "s.pbrt"
+    path.write_text(scene_text(
+        width=32, height=24, spp=2, iterations=2, maxdepth=4, denoise=True,
+        filterradius=2, extra_integrator='"bool acrr" ["true"] '
+        '"integer trackedbounces" [3] "bool smis" ["true"] '))
+    out = tmp_path / "mesh.pt"
+    launch.run_world(launch.render_task, n_spp, n_px, (str(path), str(out)),
+                     devices=[cuda] * (n_spp * n_px), timeout=600)
+    got = torch.load(out, weights_only=False)
+    assert all(c["B1"] > 0 and c["B2"] > 0 for c in got["launches"])
+    r = TD.load(str(path))
+    r.progress = False
+    for i, it in enumerate(got["iterations"], 1):
+        r.run_iteration(i)
+        assert torch.equal(it["n"], r.states[0]["n"].cpu())
+        for k in (("film",) if i == 1 else ("film", "film_f", "avg_ls")):
+            ref = (r.film_mean if k == "film" else getattr(r, k)).cpu()
+            close = torch.isclose(it[k], ref.reshape(it[k].shape),
+                                  rtol=1e-4, atol=1e-5)
+            share = float(close.reshape(close.shape[0], -1).all(-1).float()
+                          .mean())
+            assert share == 1.0 if i == 1 else share >= 0.995, (i, k, share)
