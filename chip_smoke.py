@@ -7,8 +7,11 @@
                                      # versions, no result lines
     python3 chip_smoke.py --mesh     # phases 1-4a and 8l only: B1, B2,
                                      # B2 on halo slabs and the mesh
-                                     # phases, no result lines (both
-                                     # flags: both groups)
+                                     # phases, no result lines
+    python3 chip_smoke.py --albedo   # phases 1-4a and 8m only: the
+                                     # albedo-LUT precompute and
+                                     # bsdftest (flags combine: each
+                                     # group they name)
     python3 chip_smoke.py --other DIR  # also time B2 and B3 built from the
                                        # tree DIR (say, the parent commit
                                        # unpacked by git archive), in
@@ -162,10 +165,21 @@ and the final line is not printed:
     between synchronizes).  With 4 cards also --mesh 2x2 and --mesh 1x4
     through the CLI over NCCL, one card a rank, bit for bit equal to the
     2x2 on one card and to the 1x1;
+8m. the albedo LUTs (statmc_tpu_torch/tools/precomputealbedo, no
+    kernel of csrc/ on the path), before every profile: all nine families
+    at their default sizes and 1,024 samples a texel on the card with
+    --compare (<= 0.05 but for glass, metal and uber, whose grids from
+    the JAX package miss it), --testlut and --benchmark: seconds,
+    texels, BSDF samples/s, the compare error, the round trip, peak
+    memory, M lookups/s, M rho()/s; each family at 3 texels an axis
+    (uber 2) and 64 samples on the card and on the CPU, all texels
+    within 1e-3 and the share within rtol 1e-4 against 99% (reported);
+    bsdftest's five materials on the card, each with a spread < 0.05;
 8k. each of 8f-8j once more under torch.profiler, device only (after
-   all their unprofiled renders): kernels an iteration (the kd-tree's
-   one sample of its 2; BDPT's iteration 3, one sample; two MLT steps),
-   device ms, busy share, B1-B4's ms;
+   all their unprofiled renders): kernels an iteration (one sample: the
+   realistic staircase's of its 4, the kd-tree's of its 2, BDPT's
+   iteration 3; two MLT steps), device ms, busy share, B1-B4's ms, and
+   the seconds each profile took;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
    iteration's denoise pass profiled once more on its own; then one more
@@ -177,8 +191,8 @@ and the final line is not printed:
    terrain's iteration under torch.profiler: kernels, device time and
    busy share beside the untextured terrain's, and the device ms inside
    the ``textures.sample_texture`` and ``lights.env_map`` ranges; then
-   the hair + SSS staircase's iteration 2: kernels, device ms and busy
-   share beside the untextured staircase's, device ms inside the
+   one sample of the hair + SSS staircase: kernels, device ms and busy
+   share beside a sample of the untextured staircase's, device ms inside the
    ``hair.eval_f``, ``hair.sample_wi``, ``sss.sample_sp``, ``sss.probe``
    and ``sss.direct`` ranges, B1's ms (B2's from its denoise pass alone);
    and the hair + SSS terrain's iteration (device only) for B2, B3, B4;
@@ -2181,26 +2195,32 @@ def phase_sss_probe_calls(card, rs, rt):
 
 
 def phase_hair_sss_profile(card, r, render_s, plain):
-    """The hair + SSS staircase's iteration 2 once more under
-    torch.profiler: kernels, device ms and busy share beside the
-    untextured staircase's (plain: {kernels, device_ms, busy}), device ms
-    inside the hair.* and sss.* ranges, B1's ms; B2's from the denoise
-    pass profiled on its own.  Returns {kernel: device ms}."""
-    log, groups, launches, stages, read_s = _profile(
-        lambda: r.run_iteration(2))
+    """One sample of the hair + SSS staircase (of iteration 2's
+    FEATURE_SPP; cut from the whole iteration to make room for the
+    albedo-LUT phase) under torch.profiler: kernels, device ms and busy
+    share of a sample's part of the unprofiled iteration, beside a
+    sample's part of the untextured staircase's profiled iteration
+    (plain: {kernels, device_ms, busy}), device ms inside the hair.* and
+    sss.* ranges, B1's ms; B2's from the denoise pass profiled on its
+    own.  Returns {kernel: device ms}."""
+    spp = r.s.ecfg.pixel_samples
+    t0 = time.perf_counter()
+    _, groups, launches, stages, read_s = _profile(lambda: _one_sample(r))
+    profiled_s = time.perf_counter() - t0 - read_s
     den = _profile_denoise(r)
     total = sum(ms for ms, _ in groups.values())
     kernels = sum(n for _, n in groups.values())
     names = ("hair.eval_f", "hair.sample_wi", "sss.sample_sp", "sss.probe",
              "sss.direct")
     rng = {k: stages.get(k, [0, 0.0, 0.0]) for k in names}
-    print(f"hair sss profile: staircase iteration 2 again, "
-          f"{log['render_s']:.3f} s profiled, trace read in {read_s:.1f} s; "
+    print(f"hair sss profile: 1 of the staircase's {spp} samples, "
+          f"{profiled_s:.3f} s profiled, trace read in {read_s:.1f} s; "
           f"device time {total:.1f} ms in {kernels} kernels ({launches} "
-          f"launched through the runtime), busy {total / 1e3 / render_s:.3f} "
-          f"of the unprofiled {render_s:.3f} s (untextured staircase: "
-          f"{plain['device_ms']:.1f} ms in {plain['kernels']} kernels, busy "
-          f"{plain['busy']:.3f}); "
+          f"launched through the runtime), busy "
+          f"{total / 1e3 / (render_s / spp):.3f} of a sample's share of the "
+          f"unprofiled {render_s:.3f} s (untextured staircase, a sample of "
+          f"its {SPP}: {plain['device_ms'] / SPP:.1f} ms in "
+          f"{plain['kernels'] / SPP:.0f} kernels, busy {plain['busy']:.3f}); "
           + ", ".join(f"{k} {v[0]} calls, {v[2]:.1f} ms device "
                       f"({v[2] / max(total, 1e-9):.3f}) / {v[1]:.1f} ms host"
                       for k, v in rng.items())
@@ -2664,7 +2684,7 @@ def phase_realistic(card, plain_s, plain_rays):
     biconvex.dat, focused on the stairs) at the main path's settings (4
     spp, 2 iterations, maxdepth 8, denoised): B1 and B2 launch; the share
     of camera rays the lens lets through; rays/s beside the staircase's;
-    (phase_new_profiles profiles iteration 2.)  Returns (renderer,
+    (phase_new_profiles profiles one sample.)  Returns (renderer,
     launches, render s, rays/s, alive share)."""
     import torch
 
@@ -2884,11 +2904,9 @@ def phase_new_profiles(card, runs):
     """Each of runs {name: (renderer, iteration, its unprofiled render
     s)} rendered once more under torch.profiler, device only (after every
     unprofiled render of these paths): kernels, device ms, busy share and
-    B1-B4's ms.  Iteration None profiles one sample of iteration 1 (the
-    kd-tree's ~4 million kernels an iteration take ~5 minutes under the
-    profiler), beside a quarter of its render s; a callable is run on the
-    renderer (MLT's steps), beside the given s.  Returns {name:
-    {kernel: ms}}."""
+    B1-B4's ms.  Iteration None profiles one sample of the iteration,
+    beside its share of the render s; a callable is run on the renderer
+    (MLT's steps), beside the given s.  Returns {name: {kernel: ms}}."""
     import torch
 
     out = {}
@@ -2900,8 +2918,10 @@ def phase_new_profiles(card, runs):
             what, fn = "steps", i
         else:
             what, fn = f"iteration {i}", lambda r: r.run_iteration(i)
+        t0 = time.perf_counter()
         kernels, dev_ms, ms, read_s = _device_profile(lambda: fn(r))
-        print(f"{name} profile: {what} (device only, read in "
+        print(f"{name} profile: {what} (device only, "
+              f"{time.perf_counter() - t0:.1f} s, of which the trace read "
               f"{read_s:.1f} s): {kernels} kernels, {dev_ms:.1f} ms, busy "
               f"{dev_ms / 1e3 / render_s:.3f} of the unprofiled "
               f"{render_s:.3f} s, " + ", ".join(
@@ -2954,9 +2974,11 @@ def _print_build(cuda_build):
               f"blocks of 128 threads resident per SM", flush=True)
 
 
-# The iteration each new path profiles: the realistic staircase's second,
-# sppm's third pass (after the two measured), one sample of the kd-tree's.
-_PROFILED = {"realistic": 2, "kdtree": None, "ao_staircase": 1,
+# The iteration each new path profiles: sppm's third pass (after the two
+# measured); None: one sample, the kd-tree's (its ~4 million kernels an
+# iteration take ~5 minutes under the profiler) and the realistic
+# staircase's (one of its 4 samples, to make room for the albedo-LUT phase).
+_PROFILED = {"realistic": None, "kdtree": None, "ao_staircase": 1,
              "ao_terrain": 1, "sppm": 3}
 
 
@@ -3747,9 +3769,122 @@ def _mesh_phases(card, phase, main_rate):
     return res
 
 
+# The albedo-LUT phase: the samples a texel of the full tables, and the
+# card-against-CPU tables (3 texels an axis, uber 2, at ALBEDO_SMALL_SAMPLES),
+# whose texels must all agree within ALBEDO_ATOL; their share within rtol
+# 1e-4 is reported against ALBEDO_SHARE (glass's small table, with 144
+# texels in (0, 1e-3), reaches 96.98% on an NVIDIA H100 80GB HBM3).
+ALBEDO_SAMPLES, ALBEDO_SMALL_SAMPLES = 1024, 64
+ALBEDO_SHARE, ALBEDO_ATOL = 0.99, 1e-3
+# The families whose default tables, copied from the JAX package, miss the
+# compare's 0.05 in both packages alike: glass's and uber's grids between
+# their texels, metal's compare through the noise of its 4,096-sample truth
+# at grazing angles (tests/test_torch_albedo_lut.py,
+# test_default_grid_misses_the_threshold and
+# test_metal_truth_noisier_than_the_threshold; the reference only warns
+# past LutCheckThreshold).  Their tool exits 1, as the JAX tool does; any
+# other family over 0.05 fails the phase.
+ALBEDO_GRID_MISSES = ("glass", "metal", "uber")
+
+
+def phase_albedo_luts(card):
+    """The albedo-LUT precompute (statmc_tpu_torch/tools/precomputealbedo)
+    on the card for all nine families at their default sizes and
+    ALBEDO_SAMPLES samples a texel, with --compare, --testlut and
+    --benchmark: seconds, texels, BSDF samples/s, the compare error, the
+    round trip, peak device memory above what was held before, M
+    lookups/s and M rho()/s.  Each family's small table on the card and
+    on the CPU (the same threefry draws): the share of texels within
+    rtol 1e-4 against ALBEDO_SHARE, reported.  Then bsdftest's five
+    materials on the card.  A compare error over 0.05 outside
+    ALBEDO_GRID_MISSES, a failed round trip, a table not finite, a card
+    texel more than ALBEDO_ATOL off the CPU's, a spread >= 0.05 or a
+    launch of B1-B4 (none is on this path) raises.  Returns the workflow
+    line's "albedo_lut" entry."""
+    import torch
+
+    from statmc_tpu_torch.render import albedo_lut as TA
+    from statmc_tpu_torch.tools import bsdftest
+    from statmc_tpu_torch.tools import precomputealbedo as PA
+
+    out = {"families": {}, "bsdftest_spread": {}}
+    _zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fam in sorted(TA.FAMILY_AXES):
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = PA.run(PA.parse_args([
+                "--family", fam, "--samples", str(ALBEDO_SAMPLES),
+                "--compare", "--testlut", "--benchmark",
+                "--out", os.path.join(tmp, f"{fam}.npz")]))
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            if not res["testlut"] or (res["compare"][0] > PA.COMPARE_THRESHOLD
+                                      and fam not in ALBEDO_GRID_MISSES):
+                raise AssertionError(
+                    f"albedo LUTs {fam}: compare {res['compare']} (limit "
+                    f"{PA.COMPARE_THRESHOLD}), round trip {res['testlut']}")
+            n_axes = len(TA.FAMILY_AXES[fam])
+            small = (2 if fam == "uber" else 3,) * n_axes
+            gpu = TA.precompute_family_nd(fam, small, ALBEDO_SMALL_SAMPLES,
+                                          device="cuda").data.cpu()
+            cpu = TA.precompute_family_nd(fam, small, ALBEDO_SMALL_SAMPLES,
+                                          device="cpu").data
+            share = float(torch.isclose(gpu, cpu, rtol=1e-4, atol=0.0)
+                          .float().mean())
+            worst = float((gpu - cpu).abs().max())
+            rate = res["texels"] * ALBEDO_SAMPLES / res["seconds"]
+            row = {"sizes": list(res["lut"].sizes), "texels": res["texels"],
+                   "seconds": res["seconds"], "bsdf_samples_per_s": rate,
+                   "compare_max": res["compare"][0],
+                   "compare_mean": res["compare"][1],
+                   "round_trip": res["testlut"], "rc": res["rc"],
+                   "peak_gib": peak,
+                   "lookups_per_s": res["lookups_per_s"],
+                   "rho_per_s": res["rho_per_s"],
+                   "card_cpu_share": share, "card_cpu_max_abs": worst}
+            out["families"][fam] = row
+            print(f"albedo LUTs {fam}: {res['texels']} texels "
+                  f"{tuple(row['sizes'])} x {ALBEDO_SAMPLES} samples in "
+                  f"{res['seconds']:.3f} s = {rate / 1e6:.1f} M BSDF "
+                  f"samples/s; compare max {res['compare'][0]:.4f} mean "
+                  f"{res['compare'][1]:.4f} (tool exit {res['rc']}); round "
+                  f"trip OK; peak "
+                  f"{peak:.2f} GiB; {res['lookups_per_s'] / 1e6:.1f} M "
+                  f"lookups/s, {res['rho_per_s'] / 1e6:.4f} M rho()/s (64 "
+                  f"spp); card against CPU at {small} x "
+                  f"{ALBEDO_SMALL_SAMPLES}: {share:.4f} of texels within "
+                  f"rtol 1e-4 ({'held' if share >= ALBEDO_SHARE else 'missed'}"
+                  f" {ALBEDO_SHARE}), max |d| {worst:.2e} [{card}]",
+                  flush=True)
+            if worst > ALBEDO_ATOL or not torch.isfinite(res["lut"].data).all():
+                raise AssertionError(
+                    f"albedo LUTs {fam}: card against CPU max |d| "
+                    f"{worst:.3e} (need <= {ALBEDO_ATOL}), or the table is "
+                    "not finite")
+    for name in bsdftest.MATERIALS:
+        spread = bsdftest.check(name, device="cuda")
+        out["bsdftest_spread"][name] = spread
+        if spread >= bsdftest.SPREAD_LIMIT:
+            raise AssertionError(f"bsdftest {name}: spread {spread}")
+    launches = _read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"albedo LUTs: a kernel launched {launches}")
+    fams = out["families"].values()
+    texels = sum(v["texels"] for v in fams)
+    seconds = sum(v["seconds"] for v in fams)
+    out.update(texels=texels, seconds=seconds, card=card, launches=launches,
+               bsdf_samples_per_s=texels * ALBEDO_SAMPLES / seconds)
+    print(f"albedo LUTs: nine families, {texels} texels x {ALBEDO_SAMPLES} "
+          f"samples in {seconds:.3f} s = {out['bsdf_samples_per_s'] / 1e6:.1f}"
+          f" M BSDF samples/s; bsdftest on the card, max spread "
+          f"{max(out['bsdftest_spread'].values()):.4f}; kernel launches "
+          f"{launches} [{card}]", flush=True)
+    return out
+
+
 def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
     """only: the groups of phases to run after phase 4a ("kernels",
-    "mesh"); all phases when empty."""
+    "mesh", "albedo"); all phases when empty."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3794,6 +3929,8 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
                   phase("terrain setup", _terrain_renderer)[0].s, other)
         if "mesh" in only:
             _mesh_phases(card, phase, None)
+        if "albedo" in only:
+            phase("albedo LUTs", phase_albedo_luts, card)
         print(f"only {' and '.join(sorted(only))}: no result lines",
               flush=True)
         return 0
@@ -3836,6 +3973,7 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
                          terrain_rays)
     # Before the profiles, as the main paths: the mesh's rays/s stands
     # beside the per-sample driver's, timed in this process.
+    albedo = phase("albedo LUTs", phase_albedo_luts, card)
     mesh = _mesh_phases(card, phase, stair_rays / stair_s)
     path_ms, stair_whole = phase("staircase profile", phase_staircase_profile,
                                  card, rs, stair_s)
@@ -3991,7 +4129,7 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
         "volpath_walk_calls_checked": walk_checked, **new_workflow,
         **bm_workflow, "mesh_rays_per_s": mesh["rays_per_s"],
         "mesh_collectives_ms": mesh["collectives_ms"],
-        "mesh_shares": mesh["shares"]}}))
+        "mesh_shares": mesh["shares"], "albedo_lut": albedo}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4001,7 +4139,7 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
-    sys.exit(main(only=frozenset(g for g in ("kernels", "mesh")
+    sys.exit(main(only=frozenset(g for g in ("kernels", "mesh", "albedo")
                                  if f"--{g}" in argv),
                   other_tree=(argv[argv.index("--other") + 1]
                               if "--other" in argv else None)))

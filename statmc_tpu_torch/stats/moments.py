@@ -92,6 +92,45 @@ def update_transform(state: dict, sample, mask=None, lam: float = 0.5
     return new
 
 
+def from_batch(samples, axis: int = 0, transform: bool = False,
+               lam: float = 0.5, mask=None) -> dict:
+    """A moment state from a batch of samples in one shot
+    (statmc_tpu/stats/moments.py:168): the stable two-pass form, the
+    batch mean subtracted first; `mask` weights each sample 0 or 1.
+    Equals the streaming result in exact arithmetic."""
+    x = box_cox(samples, lam) if transform else samples
+    if mask is None:
+        n = float(samples.shape[axis])
+        mean = x.mean(axis)
+        d = x - mean.unsqueeze(axis)
+        st = {"n": torch.full_like(mean[..., :1], n), "mean": mean,
+              "m2": (d * d).sum(axis), "m3": (d * d * d).sum(axis)}
+        if transform:
+            fmean = samples.mean(axis)
+            fd = samples - fmean.unsqueeze(axis)
+            st["film_mean"] = fmean
+            st["film_m2"] = (fd * fd).sum(axis)
+        return st
+    w = mask.unsqueeze(-1).to(samples.dtype)
+    n = w.sum(axis)
+    n_safe = torch.clamp(n, min=1.0)
+    mean = (w * x).sum(axis) / n_safe
+    d = (x - mean.unsqueeze(axis)) * w
+    st = {"n": n[..., :1], "mean": mean, "m2": (d * d).sum(axis),
+          "m3": (d * d * d).sum(axis)}
+    if transform:
+        fmean = (w * samples).sum(axis) / n_safe
+        fd = (samples - fmean.unsqueeze(axis)) * w
+        st["film_mean"] = fmean
+        st["film_m2"] = (fd * fd).sum(axis)
+    return st
+
+
+def sample_variance(state: dict):
+    """Unbiased sample variance M2/(n-1)."""
+    return state["m2"] / torch.clamp(state["n"] - 1.0, min=1.0)
+
+
 def mean_variance(state: dict, film: bool = False):
     """Variance of the mean: M2/((n-1) n) (estimator.cpp:524-569)."""
     n = state["n"]

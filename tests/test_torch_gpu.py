@@ -4,8 +4,9 @@ render and a textured render on the card against the CPU, the
 environment map's sampling search at 2^20 lanes on the card against the
 CPU, a volpath render on the card against the CPU and B1 on its walks'
 closest-hit calls, BDPT and MLT on the card against the CPU (BDPT's
-splats bit for bit in two runs), and the exact lockstep replay of
-tiny.pbrt on the card against the C++ reference's PFMs.
+splats bit for bit in two runs), the exact lockstep replay of
+tiny.pbrt on the card against the C++ reference's PFMs, and the
+albedo-LUT precompute and bsdftest on the card against the CPU.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
 and skip without an NVIDIA GPU.  The file imports torch and the port
@@ -895,3 +896,45 @@ def test_mesh_on_the_card_matches_one_device(cuda, n_spp, n_px, tmp_path):
             share = float(close.reshape(close.shape[0], -1).all(-1).float()
                           .mean())
             assert share == 1.0 if i == 1 else share >= 0.995, (i, k, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["matte", "metal", "glass", "hair"])
+def test_albedo_lut_card_matches_cpu(cuda, family):
+    """precompute_family_nd at 3 texels an axis and 64 samples on the
+    card and on the CPU (the same threefry draws): every texel within
+    1e-3, as chip_smoke.py holds, and >= 95% within rtol 1e-4 (the card
+    rounds its transcendentals otherwise; chip_smoke.py measured 100%
+    for matte, metal and hair and 96.98% for glass, whose small table
+    has 144 texels in (0, 1e-3)); the lookup of 4,096 coordinates within
+    1e-5 of the CPU's on the CPU's table."""
+    from statmc_tpu_torch.render import albedo_lut as TA
+
+    sizes = (3,) * len(TA.FAMILY_AXES[family])
+    gpu = TA.precompute_family_nd(family, sizes, n_samples=64, seed=3,
+                                  device=cuda).data.cpu()
+    cpu = TA.precompute_family_nd(family, sizes, n_samples=64, seed=3,
+                                  device="cpu")
+    close = torch.isclose(gpu, cpu.data, rtol=1e-4, atol=0.0)
+    assert float(close.float().mean()) >= 0.95
+    assert float((gpu - cpu.data).abs().max()) <= 1e-3
+    c = torch.rand((4096, len(sizes)), generator=torch.Generator()
+                   .manual_seed(1))
+    on_card = TA.LookupTable(cpu.data.to(cuda), sizes).lookup(c.to(cuda))
+    torch.testing.assert_close(on_card.cpu(), cpu.lookup(c), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_precompute_tool_and_bsdftest_on_the_card(cuda, tmp_path, capsys):
+    """The two tools without --device run on the card: the precompute's
+    self-tests pass on a small mirror table, bsdftest's five materials
+    are consistent."""
+    from statmc_tpu_torch.tools import bsdftest, precomputealbedo
+
+    assert precomputealbedo.main(["--family", "mirror", "--sizes", "3", "5",
+                                  "--samples", "64", "--compare",
+                                  "--testlut"]) == 0
+    assert "testlut: grid round trip OK" in capsys.readouterr().out
+    for name in bsdftest.MATERIALS:
+        assert bsdftest.main([name]) == 0

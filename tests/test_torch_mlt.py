@@ -249,3 +249,59 @@ def test_cli_renders_mlt(tmp_path, capsys, monkeypatch):
     f = read_pfm(str(out / "staircase-proxy-8-film.pfm"))
     np.testing.assert_array_equal(f, r.buffers()["film"])
     assert np.isfinite(f).all() and f.mean() > 0
+
+
+MLT_PARAMS = ('"integer bootstrapsamples" [4096] "integer chains" [100] '
+              '"integer mutationsperpixel" [64] '
+              '"float largestepprobability" [0.7] "float sigma" [0.05]')
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_mlt_scene_parameters_ignored(bidirectional, tmp_path_factory,
+                                      monkeypatch):
+    """pbrt's MLTIntegrator reads bootstrapsamples, chains,
+    mutationsperpixel, largestepprobability and sigma; both packages
+    take N_CHAINS, N_BOOTSTRAP, P_LARGE, SIGMA and the spp schedule
+    instead (statmc_tpu/render/pssmlt.py:45-48,
+    statmc_tpu_torch/render/pssmlt.py:37-40).  An mlt scene with those
+    parameters renders bit for bit as the scene without them, in each
+    package: the JAX package with the cheap f of the chain-logic test
+    (its chain logic whole), the port with the cheap f and, in the
+    unidirectional mode, with its real f."""
+    for mod in (JM, TM):
+        monkeypatch.setattr(mod, "N_CHAINS", 64)
+        monkeypatch.setattr(mod, "N_BOOTSTRAP", 512)
+    plain = _box(tmp_path_factory, f"plain{int(bidirectional)}",
+                 bidirectional)
+    text = open(plain).read()
+    tagged = text.replace('"integer iterations" [1]',
+                          '"integer iterations" [1] ' + MLT_PARAMS, 1)
+    assert tagged != text
+    with_params = plain[:-len(".pbrt")] + "_params.pbrt"
+    with open(with_params, "w") as f:
+        f.write(tagged)
+
+    def renders(load, **kw):
+        out = []
+        for path in (plain, with_params):
+            r = load(path, base_seed=5, **kw)
+            r.render(iterations=1, verbose=False)
+            out.append((np.asarray(r.film_mean).copy(), r.b, r.n_mut))
+        return out
+
+    real_t = TM.MLTRenderer._f
+    W = H = 8
+    monkeypatch.setattr(JM.MLTRenderer, "_f",
+                        lambda self, U: _cheap(U, W, H, "jax"))
+    monkeypatch.setattr(TM.MLTRenderer, "_f",
+                        lambda self, U: _cheap(U, W, H, "torch"))
+    runs = [renders(JD.load), renders(TD.load, device="cpu")]
+    if not bidirectional:
+        monkeypatch.setattr(TM.MLTRenderer, "_f", real_t)
+        runs.append(renders(TD.load, device="cpu"))
+    for (f0, b0, n0), (f1, b1, n1) in runs:
+        np.testing.assert_array_equal(f1, f0)
+        assert b1 == b0 and n1 == n0 > 0 and f0.sum() > 0
+    # The cheap chains agree across the packages too, to b's rounding (its
+    # two means reduce in different orders).
+    np.testing.assert_allclose(runs[1][0][0], runs[0][0][0], rtol=1e-6)
