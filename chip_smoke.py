@@ -29,7 +29,13 @@ and the final line is not printed:
    staircase proxy's table and on a 16,384-triangle table, 2^20 rays:
    ids equal on every ray and t equal as bits;
 4. kernel B2 (statistical filter) against its plain version at 1280x720,
-   radius 20, C = 3, G = 6, CF = 3, normalized and not;
+   radius 20, C = 3, G = 6, CF = 3, normalized and not; then each of its
+   five other forms (range_bf16, accept_expand, accept_bf16 and their
+   pairs, denoise/filter_cuda.py FORMS) against its plain version on a
+   256x144 crop with its halo of 20 (the crop's centre equal to the whole
+   image's kernel output bit for bit), timed on the whole image, with its
+   bound at its own accepted share and its relative error against the
+   f32 form's output;
 4a. kernel B2 on the mesh's halo slabs: inputs of phase 4's kind cut
    into 2 and 4 row slabs, each extended by 20 rows of its neighbours
    and by zeros with valid = 0 past the image's edges: the kernel
@@ -37,12 +43,20 @@ and the final line is not printed:
    equal to the whole image's output bit for bit;
 5. the staircase main path: ``load(scene).render(iterations=2)`` on the
    staircase proxy at 1280x720, maxdepth 8, filter radius 20, albedo +
-   normal G-buffers, 4 spp, with B1's and B2's launch counts set to 0
-   just before it and read just after;
+   normal G-buffers, 4 spp, with B1's and B2's launch counts (B2's by
+   form too: every launch the default f32 form's) set to 0 just before
+   it and read just after;
 6. kernel B2 against its plain version on the render's own inputs: the
    arguments iteration 2's denoise passes to run_filter, captured by
    running that denoise once more; normalized and not, with the
-   accepted share and the bound at it;
+   accepted share and the bound at it; and its five other forms as in 4,
+   each within a mean relative error of 2e-3 of the f32 form's output;
+6a. that denoise once more through ``Renderer(setup,
+   denoiser=StatDenoiser(..., range_bf16=True))`` on the same states: B2's
+   launches by form set to 0 just before and read just after (the
+   range_bf16 form must launch, and no other), the film-f finite, not
+   equal to the f32 denoise's and within a mean relative error of 2e-3
+   of it;
 7. the same call as 5 on a small staircase proxy (32x24) on the card and
    through the plain PyTorch path on the CPU, which the CPU tests hold
    against the JAX package: the buffers must agree;
@@ -124,7 +138,7 @@ and the final line is not printed:
    just before the render, read just after); every buffer finite, film
    mean > 0; the share of camera rays the lens lets through; rays/s
    beside the staircase's, peak device memory;
-8g. the kd-tree: the staircase under `Accelerator "kdtree"` (2 spp, 1
+8g. the kd-tree: the staircase under `Accelerator "kdtree"` (1 spp, 1
    iteration, denoised): B2 must launch and B1 must not; the SAH
    build's seconds, node count, depth and widest leaf; the walk's steps
    a call (mean and maximum) against its cap, and steps a ray;
@@ -141,7 +155,7 @@ and the final line is not printed:
    memory, iteration 1 run twice (two renderers) equal bit for bit; bdpt
    on the terrain (1 spp, 1 iteration; B3 and B4 must launch), rays/s
    beside the terrain's; mlt on the staircase (bidirectional, maxdepth
-   5): the bootstrap, then one mutation a pixel (113 steps of 8,192
+   5): the bootstrap, then half a mutation a pixel (57 steps of 8,192
    chains; B1 must launch): b, the acceptance rate, the share of large
    steps, steps/s, mutations/s beside the staircase's rays/s, peak
    memory;
@@ -175,10 +189,10 @@ and the final line is not printed:
     (uber 2) and 64 samples on the card and on the CPU, all texels
     within 1e-3 and the share within rtol 1e-4 against 99% (reported);
     bsdftest's five materials on the card, each with a spread < 0.05;
-8k. each of 8f-8j once more under torch.profiler, device only (after
-   all their unprofiled renders): kernels an iteration (one sample: the
-   realistic staircase's of its 4, the kd-tree's of its 2, BDPT's
-   iteration 3; two MLT steps), device ms, busy share, B1-B4's ms, and
+8k. each of 8f-8j but the kd-tree once more under torch.profiler, device
+   only (after all their unprofiled renders): kernels an iteration (one
+   sample: the realistic staircase's of its 4; BDPT's iteration 3; two
+   MLT steps), device ms, busy share, B1-B4's ms, and
    the seconds each profile took;
 9. the staircase's iteration 2 once more under torch.profiler (device
    activity only): B1's device time per iteration, and B2's from that
@@ -202,7 +216,7 @@ and the final line is not printed:
 10. kernel B3 on those rays: its time over all calls; votes against the
     two-stage plain cull, and the reject tests, per-ray tests and
     surviving boxes per block that its design spends there, on every
-    4th call;
+    call;
 11. kernels B3 (subgroup cull) and B4 (worklist walk) against their plain
     versions on the terrain's table: its 1280x720 camera rays (sorted, as
     the main path sorts them) and 2^20 random rays grazing the terrain
@@ -257,9 +271,12 @@ version runs once, and its time is that one CUDA-event reading.  Each
 kernel's bound (bound_ms) is the larger of its FP32 operations over
 67 TFLOP/s and its bytes (each input read once, each output written
 once) over 3.35 TB/s, the H100 SXM's published peaks, counting the work
-these inputs need.  main_path_ms is the kernel's device time over one
-profiled iteration of the main path that runs it.  Every time is printed
-with the card's name and power limit.  Imports nothing of JAX.
+these inputs need; B2's bf16 operations count half an FP32 one (a bf16x2
+instruction does two in one FP32 issue slot: the non-tensor bf16 peak,
+133.8 TFLOP/s, is twice the FP32 one).  main_path_ms is the kernel's
+device time over one profiled iteration of the main path that runs it.
+Every time is printed with the card's name and power limit.  Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -272,6 +289,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, SPP, MAXDEPTH, RADIUS = 1280, 720, 4, 8, 20
@@ -291,6 +309,22 @@ B2_OPS_REJECT = 3 * 5  # (pixel, neighbour): the 3-channel acceptance test
 # An accepted pair adds its weight (spatial 3, G = 6 planes x 4), expf
 # (~8), valid and wsum (2) and the CF = 3 sums (2 each).
 B2_OPS_ACCEPT = B2_OPS_REJECT + 3 + 6 * 4 + 8 + 2 + 3 * 2
+# B2's forms (denoise/filter_cuda.py FORMS) at that shape, in FP32
+# operations: the test a pair (direct, expanded: an FMA (2) and a compare a
+# channel, bf16: difference, square, sum and compare a channel) and the
+# weight an accepted pair (f32 range, or the bf16 one: the spatial term,
+# 6 planes x difference, square and subtraction in bf16, expf, valid and
+# wsum, the 3 sums).  A bf16 operation is one half of a bf16x2
+# instruction, which takes one FP32 issue slot, so it counts half: the
+# H100 SXM's non-tensor bf16 peak (133.8 TFLOP/s) is twice its FP32 one.
+# Conversions to and from bf16 are not counted.
+B2_TEST_OPS = {"f32": B2_OPS_REJECT, "expand": 3 * 3, "bf16": 3 * 4 / 2}
+B2_WEIGHT_OPS = {"f32": B2_OPS_ACCEPT - B2_OPS_REJECT,
+                 "bf16": 3 + 6 * 3 / 2 + 8 + 2 + 3 * 2}
+# Rows and columns of the crop on which B2's other forms meet their plain
+# versions (with a halo of r on every side): the plain version takes ~1 s
+# a call on the whole 1280x720 image.
+B2_CROP = (144, 256)
 B3_OPS = 20  # (ray, subgroup box) slab test
 # (sub-block, box) reject of the redesigned B3: per axis 4 subtractions,
 # 8 products, 14 min/max and 2 merges; then the product and 2 compares.
@@ -313,9 +347,9 @@ TERRAIN_SPP, TERRAIN_MAXDEPTH = 4, 8  # bench.py's terrain line
 FEATURE_SPP = 2
 # Samples a pixel of the kd-tree staircase and of the samplers phase's
 # full-width iterations, cut from 4 to keep the whole run inside its time
-# limit once the bdpt and mlt phases joined it.  Rays/s hardly depends on
-# the count.
-KDTREE_SPP = SAMPLER_SPP = 2
+# limit once the bdpt and mlt phases joined it, the kd-tree's to 1 once
+# B2's other forms did.  Rays/s hardly depends on the count.
+KDTREE_SPP, SAMPLER_SPP = 1, 2
 # The profiler ranges whose device time _trace_sums attributes: the
 # two-level intersect's stages, the texture lookups, the env-map branches,
 # the hair model and the BSSRDF transport (these nest: sss.probe inside
@@ -385,7 +419,11 @@ def _once_ms(fn):
 def _other_library(tree):
     """Kernels B2 and B3 built from another tree's sources
     (`tree`/statmc_tpu_torch/csrc/stat_filter.cu and twolevel_cull.cu, with
-    this tree's nvcc flags) into build/other/, loaded with ctypes."""
+    this tree's nvcc flags) into build/other/, loaded with ctypes.  Their
+    C entry points must take this tree's arguments (cuda_build's
+    _SIGNATURES), or B2's those of a tree from before its other forms
+    (the f32 form's, with float factors), which a stand-in takes this
+    tree's arguments for."""
     import ctypes
 
     from statmc_tpu_torch import cuda_build
@@ -401,7 +439,30 @@ def _other_library(tree):
         fn = getattr(lib, name)
         fn.argtypes = cuda_build._SIGNATURES[name]
         fn.restype = ctypes.c_int
-    return lib
+    with open(os.path.join(csrc, "stat_filter.cu")) as f:
+        if "int accept_bf16" in f.read():
+            return lib
+    # mc, d2, fm, gb, valid, gb_factors (float), H, W, C, CF, G, radius,
+    # ds, normalize, out, wsum, stream
+    f32_only = lib.statmc_stat_filter
+    f32_only.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_int]
+                         + [ctypes.c_void_p] * 3)
+
+    def stat_filter(mc, d2, fm, gb, valid, factors, H, W, C, CF, G, radius,
+                    ds, normalize, accept_expand, range_bf16, accept_bf16,
+                    gs, out, wsum, stream):
+        if accept_expand or range_bf16 or accept_bf16:
+            raise ValueError("the other tree's B2 has only the f32 form")
+        gf = ctypes.cast(factors, ctypes.POINTER(ctypes.c_double))[:G]
+        gf32 = (ctypes.c_float * max(G, 1))(*gf)
+        return f32_only(mc, d2, fm, gb, valid,
+                        ctypes.cast(gf32, ctypes.c_void_p), H, W, C, CF, G,
+                        radius, ds, normalize, out, wsum, stream)
+
+    return types.SimpleNamespace(
+        statmc_stat_filter=stat_filter,
+        statmc_twolevel_cull=lib.statmc_twolevel_cull)
 
 
 def _ab_ms(fn, other):
@@ -564,61 +625,152 @@ def _filter_inputs(rng):
 
 
 def phase_b2(rng, card, other):
-    """Kernel B2 against its plain version at the production shape."""
+    """Kernel B2 against its plain version at the production shape, in
+    each of its forms."""
     mc, d2, fm, gb, valid = _filter_inputs(rng)
     gf = (-0.5 / 0.02 ** 2,) * 3 + (-0.5 / 0.1 ** 2,) * 3
     ds = -0.5 / 10.0 ** 2
-    return _b2_check("B2", card, other, (mc, d2, fm, gb, valid, RADIUS, ds,
-                                         gf), min_wsum=1.0 - 1e-5)
+    return _b2_all_forms("B2", card, other, (mc, d2, fm, gb, valid, RADIUS,
+                                             ds, gf), min_wsum=1.0 - 1e-5)
 
 
-def _b2_check(name, card, other, args, min_wsum=None):
-    """B2 against its plain version on `args` (run_filter's arguments
-    without normalize), normalized and not: max |dout|, times, the
-    in-image pairs and the accepted share, and the bound at that share.
-    Returns {normalize: results}."""
+def _b2_forms_tested():
+    """B2's forms other than the default f32 one (filter_cuda.FORMS)."""
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+
+    return list(FC.FORMS)[1:]
+
+
+def _b2_check(name, card, other, args, min_wsum=None, form="f32",
+              f32_out=None, full_plain=True, hold=None, pairs_of=None):
+    """B2 in `form` (a key of filter_cuda.FORMS) against its plain version
+    on `args` (run_filter's arguments without normalize), normalized and
+    not: max |dout|, times, the in-image pairs and the share this form
+    accepts, and the bound at that share.  The f32 form's plain version
+    runs on the whole image; another form's on a B2_CROP crop of it with
+    a halo of r (whose centre must equal the whole image's kernel output
+    bit for bit), and, when full_plain, once more on the whole image,
+    normalized, for its time.  Another form's normalized output is also
+    held against f32_out, the f32 kernel's: its relative error (mean, max)
+    and the shift of the image's mean, the mean held below `hold` when
+    given.  pairs_of caches _filter_pairs by acceptance test.  Returns
+    {normalize: results}, the f32 form's normalized output under "out"."""
     import torch
 
     from statmc_tpu_torch.denoise import filter_cuda as FC
 
+    kw = FC.FORMS[form]
     mc, d2 = args[0], args[1]
     H, W, _ = mc.shape
-    pairs, accepted = _filter_pairs(mc, d2, args[5])
+    r = args[5]
+    bf16 = bool(kw.get("range_bf16")) and args[3].shape[2] > 0
+    test = ("bf16" if kw.get("accept_bf16") else
+            "expand" if kw.get("accept_expand") else "f32")
+    pairs_of = {} if pairs_of is None else pairs_of
+    if test not in pairs_of:
+        pairs_of[test] = _filter_pairs(mc, d2, r, **{
+            k: v for k, v in kw.items() if k != "range_bf16"})
+    pairs, accepted = pairs_of[test]
+    ops = (pairs * B2_TEST_OPS[test]
+           + accepted * B2_WEIGHT_OPS["bf16" if bf16 else "f32"])
+    held, where = args, ""
+    if form != "f32":
+        (ch, cw), (y0, x0) = B2_CROP, ((H - B2_CROP[0]) // 2,
+                                       (W - B2_CROP[1]) // 2)
+        assert min(y0, x0) >= r, "the crop's halo must lie in the image"
+        held = tuple(x[y0 - r:y0 + ch + r, x0 - r:x0 + cw + r].contiguous()
+                     for x in args[:5]) + tuple(args[5:])
+        where = (f" on a {cw}x{ch} crop with its halo, its centre equal to "
+                 "the whole image's bit for bit")
     out = {}
     for normalize in (True, False):
-        args_n = (*args, normalize)
-        o_k, w_k = FC.run_filter(*args_n)
-        (o_p, w_p), plain_ms = _once_ms(lambda: FC.run_filter_plain(*args_n))
+        o_full, w_full = FC.run_filter(*args, normalize, **kw)
+        o_k, w_k = (o_full, w_full) if form == "f32" else FC.run_filter(
+            *held, normalize, **kw)
+        (o_p, w_p), plain_ms = _once_ms(
+            lambda: FC.run_filter_plain(*held, normalize, **kw))
         # The kernel sums the window in the plain version's order with the
         # same rounding per step; expf and the library exp may still
-        # differ in the last bit, hence rtol 1e-4 / atol 1e-6.
-        torch.testing.assert_close(o_k, o_p, rtol=1e-4, atol=1e-6)
-        torch.testing.assert_close(w_k, w_p, rtol=1e-4, atol=1e-6)
-        if min_wsum is not None and float(w_k.min()) < min_wsum:
-            raise AssertionError(f"{name}: min wsum {float(w_k.min())}")
+        # differ in the last bit, hence rtol 1e-4 / atol 1e-6; in the bf16
+        # range forms that moves a weight by a bf16 ulp (2^-8 relative,
+        # 2^-7 on the normalized output).
+        rtol = (2.0 ** -7 if normalize else 2.0 ** -8) if bf16 else 1e-4
+        torch.testing.assert_close(o_k, o_p, rtol=rtol, atol=1e-6)
+        torch.testing.assert_close(w_k, w_p, atol=1e-6,
+                                   rtol=2.0 ** -8 if bf16 else 1e-4)
+        if form != "f32":
+            c = (slice(y0, y0 + ch), slice(x0, x0 + cw))
+            k = (slice(r, r + ch), slice(r, r + cw))
+            if not (torch.equal(o_k[k], o_full[c])
+                    and torch.equal(w_k[k], w_full[c])):
+                raise AssertionError(f"{name}: the crop's centre differs "
+                                     "from the whole image's output")
+        if min_wsum is not None and float(w_full.min()) < min_wsum:
+            raise AssertionError(f"{name}: min wsum {float(w_full.min())}")
         err = float((o_k - o_p).abs().max())
-        ms = _median_ms(lambda: FC.run_filter(*args_n))
-        ab = _ab_ms(lambda: FC.run_filter(*args_n), other)
-        bound_ms, bound_by = _bound(
-            pairs * B2_OPS_REJECT + accepted * (B2_OPS_ACCEPT - B2_OPS_REJECT),
-            _nbytes(*args[:5], o_k, w_k))
+        ms = _median_ms(lambda: FC.run_filter(*args, normalize, **kw))
+        ab = (_ab_ms(lambda: FC.run_filter(*args, normalize), other)
+              if form == "f32" else (None, None))
+        bound_ms, bound_by = _bound(ops, _nbytes(*args[:5], o_full, w_full))
+        res = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms,
+                   bound_by=bound_by, accepted=accepted / pairs, ab=ab)
+        extra = ""
+        if form != "f32":
+            res["plain_crop_ms"] = plain_ms
+            res["plain_ms"] = None
+            if full_plain and normalize:
+                _, res["plain_ms"] = _once_ms(
+                    lambda: FC.run_filter_plain(*args, normalize, **kw))
+            extra = (f", plain on the whole image {res['plain_ms']:.3f} ms "
+                     "(once)" if res["plain_ms"] is not None else "")
+        if form == "f32" and normalize:
+            res["out"] = o_full
+        if form != "f32" and normalize and f32_out is not None:
+            rel = (o_full - f32_out).abs() / (f32_out.abs() + 1e-6)
+            res.update(rel_mean=float(rel.mean()), rel_max=float(rel.max()),
+                       mean_shift=float(o_full.mean() / f32_out.mean() - 1))
+            extra += (f"; against the f32 kernel: relative error mean "
+                      f"{res['rel_mean']:.3e}, max {res['rel_max']:.3e}, "
+                      f"the image's mean moved {res['mean_shift']:+.3e}")
+            if not torch.isfinite(o_full).all() or (
+                    hold is not None and res["rel_mean"] >= hold):
+                raise AssertionError(f"{name}: not finite, or mean relative "
+                                     f"error {res['rel_mean']} >= {hold}")
         print(f"{name} normalize={normalize}: {W}x{H} C={mc.shape[2]} "
-              f"CF={args[2].shape[2]} G={args[3].shape[2]} r={args[5]}, max "
-              f"|dout| {err:.3e}, min wsum {float(w_k.min()):.6f}; "
+              f"CF={args[2].shape[2]} G={args[3].shape[2]} r={r}, max "
+              f"|dout| {err:.3e}{where}, min wsum "
+              f"{float(w_full.min()):.6f}; "
               f"{pairs} in-image pairs, {accepted / pairs:.4f} accepted; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once), bound "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (once"
+              f"{', crop' if where else ''}){extra}, bound "
               f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.3f} of the "
               f"kernel's time){_ab_text(ab)} [{card}]", flush=True)
-        out[normalize] = dict(ms=ms, plain_ms=plain_ms, err=err,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              accepted=accepted / pairs, ab=ab)
+        out[normalize] = res
     return out
 
 
-def _filter_pairs(mc, d2, radius):
+def _b2_all_forms(name, card, other, args, min_wsum=None, full_plain=True,
+                  hold=None):
+    """_b2_check of every form on `args`: {form: {normalize: results}}."""
+    pairs_of = {}
+    res = {"f32": _b2_check(name, card, other, args, min_wsum=min_wsum,
+                            pairs_of=pairs_of)}
+    f32_out = res["f32"][True].pop("out")
+    for form in _b2_forms_tested():
+        res[form] = _b2_check(f"{name} {form}", card, None, args,
+                              min_wsum=None if min_wsum is None
+                              else 1.0 - 2.0 ** -8, form=form,
+                              f32_out=f32_out, full_plain=full_plain,
+                              hold=hold, pairs_of=pairs_of)
+    return res
+
+
+def _filter_pairs(mc, d2, radius, accept_expand=False, accept_bf16=False):
     """(in-image (pixel, neighbour) pairs, accepted ones) of the window of
-    `radius`: the acceptance test decides which pairs take the weight and
-    its exponential."""
+    `radius`: the acceptance test (in the form the flags name) decides
+    which pairs take the weight and its exponential."""
+    from statmc_tpu_torch.denoise.filter_cuda import acceptance
+
     H, W, _ = mc.shape
     pairs = accepted = 0
     for dy in range(-radius, radius + 1):
@@ -627,8 +779,8 @@ def _filter_pairs(mc, d2, radius):
                 max(0, dy), H - max(0, -dy))
             xs, xj = slice(max(0, -dx), W - max(0, dx)), slice(
                 max(0, dx), W - max(0, -dx))
-            diff = mc[ys, xs] - mc[yj, xj]
-            ok = (diff * diff <= d2[ys, xs] + d2[yj, xj] + 1e-20).all(-1)
+            ok = acceptance(mc[ys, xs], d2[ys, xs], accept_expand,
+                            accept_bf16)(mc[yj, xj], d2[yj, xj])
             pairs += ok.numel()
             accepted += int(ok.sum())
     return pairs, accepted
@@ -653,9 +805,10 @@ def _profile(fn, host: bool = True):
 
 def phase_main_path(card):
     """load(scene).render(iterations=2) on the card, launch counts
-    read around it.  Returns the launch counts, the renderer (the
-    profile phase runs its iteration 2 again) and iteration 2's
-    render_s."""
+    read around it: B2's by form too, every one of them the default f32
+    form's.  Returns the launch counts, the renderer (the profile phase
+    runs its iteration 2 again), iteration 2's render_s and rays, the
+    denoise's run_filter calls and B2's launches by form."""
     import numpy as np
     import torch
 
@@ -673,18 +826,21 @@ def phase_main_path(card):
         r.progress = False
         F.intersect_tiles.launches = 0
         FC.run_filter.launches = 0
+        FC.run_filter.form_launches = dict.fromkeys(FC.FORMS, 0)
         logs = r.render(iterations=2, verbose=False)
         torch.cuda.synchronize()
         launches = {"B1": F.intersect_tiles.launches,
                     "B2": FC.run_filter.launches}
+        forms = dict(FC.run_filter.form_launches)
         filter_calls = _capture_filter_inputs(r)
         film = r.film_mean.cpu().numpy()
         film_f = r.film_f.cpu().numpy()
     for name, img in (("film", film), ("film-f", film_f)):
         if not (np.isfinite(img).all() and img.mean() > 0):
             raise AssertionError(f"{name}: not finite with mean > 0")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"main path launch counts {launches}")
+    if min(launches.values()) <= 0 or forms["f32"] != launches["B2"]:
+        raise AssertionError(f"main path launch counts {launches}, B2's "
+                             f"by form {forms}")
     prev = 0.0
     for log in logs:  # rays_total accumulates over iterations
         rays = log["rays_total"] - prev
@@ -696,8 +852,8 @@ def phase_main_path(card):
     print(f"main path: {WIDTH}x{HEIGHT} spp {SPP} maxdepth {MAXDEPTH} "
           f"radius {RADIUS}, setup {setup_s:.1f} s, film mean "
           f"{film.mean():.5f}, film-f mean {film_f.mean():.5f}, launches "
-          f"{launches}", flush=True)
-    return launches, r, logs[-1]["render_s"], rays, filter_calls
+          f"{launches}, B2's by form {forms}", flush=True)
+    return launches, r, logs[-1]["render_s"], rays, filter_calls, forms
 
 
 def _capture_filter_inputs(r):
@@ -709,9 +865,9 @@ def _capture_filter_inputs(r):
 
     calls, real = [], FL.run_filter
 
-    def record(*args):
+    def record(*args, **kw):
         calls.append(args)
-        return real(*args)
+        return real(*args, **kw)
 
     FL.run_filter = record
     try:
@@ -723,15 +879,68 @@ def _capture_filter_inputs(r):
 
 def phase_b2_render(card, other, calls):
     """Kernel B2 against its plain version on the inputs of the staircase
-    render's iteration-2 denoise (each call of it)."""
+    render's iteration-2 denoise (each call of it), in each of its forms:
+    another form's output within a mean relative error of 2e-3 of the f32
+    form's."""
     out = None
     for k, args in enumerate(calls):
-        res = _b2_check(f"B2 render inputs, call {k + 1} of {len(calls)}",
-                        card, other, tuple(args[:8]))
+        res = _b2_all_forms(f"B2 render inputs, call {k + 1} of "
+                            f"{len(calls)}", card, other, tuple(args[:8]),
+                            full_plain=False, hold=2e-3)
         out = out or res
     if out is None:
         raise AssertionError("B2 render inputs: the denoise made no call")
     return out
+
+
+def phase_b2_range_bf16_render(card, r):
+    """The staircase's iteration-2 denoise once more through
+    Renderer(setup, denoiser=StatDenoiser(..., range_bf16=True)) on the
+    main path's moment states and film: B2's launch counts, by form too,
+    set to 0 just before and read just after (the range_bf16 form must
+    launch, and no other); the film-f finite, not equal to the f32
+    denoise's film-f, its relative error against it (mean, held below
+    2e-3, and max) and the shift of its mean; the pass's seconds (host
+    clock around a synchronize).  Returns (B2's launches by form,
+    results)."""
+    import torch
+
+    from statmc_tpu_torch.denoise import filter_cuda as FC
+    from statmc_tpu_torch.denoise.filter import StatDenoiser
+    from statmc_tpu_torch.driver import Renderer
+
+    s = r.s
+    r16 = Renderer(s, denoiser=StatDenoiser(s.ecfg, s.width, s.height,
+                                            range_bf16=True,
+                                            device=s.device))
+    r16.states, r16.film_sum, r16.film_w = r.states, r.film_sum, r.film_w
+    FC.run_filter.launches = 0
+    FC.run_filter.form_launches = dict.fromkeys(FC.FORMS, 0)
+    t0 = time.perf_counter()
+    r16._denoise()
+    torch.cuda.synchronize()
+    denoise_s = time.perf_counter() - t0
+    launches = FC.run_filter.launches
+    forms = dict(FC.run_filter.form_launches)
+    f16, f32 = r16.film_f, r.film_f
+    rel = (f16 - f32).abs() / (f32.abs() + 1e-6)
+    res = dict(rel_mean=float(rel.mean()), rel_max=float(rel.max()),
+               mean_shift=float(f16.mean() / f32.mean() - 1),
+               denoise_s=denoise_s)
+    print(f"B2 range_bf16 render: Renderer(denoiser=StatDenoiser("
+          f"range_bf16=True)) on iteration 2's states, {WIDTH}x{HEIGHT} r="
+          f"{RADIUS}: B2 launches {launches} ({forms}), film-f against the "
+          f"f32 "
+          f"denoise's: relative error mean {res['rel_mean']:.3e}, max "
+          f"{res['rel_max']:.3e}, mean moved {res['mean_shift']:+.3e}; "
+          f"denoise {denoise_s * 1e3:.1f} ms [{card}]", flush=True)
+    if (forms["range_bf16"] <= 0 or launches != forms["range_bf16"]
+            or not torch.isfinite(f16).all() or torch.equal(f16, f32)
+            or res["rel_mean"] >= 2e-3):
+        raise AssertionError(f"B2 range_bf16 render: launches {launches}, "
+                             f"by form {forms}, film-f equal to the f32 "
+                             f"one: {torch.equal(f16, f32)}, {res}")
+    return forms, res
 
 
 def _profile_denoise(r, tries: int = 3):
@@ -2427,7 +2636,8 @@ def phase_volpath(card, plain_s, plain_rays):
 
 def _one_sample(r):
     """One sample per pixel from sample 0 through r's chunk function, on
-    its states, film and counters (the kd-tree's profiled sample)."""
+    its states, film and counters (the realistic staircase's profiled
+    sample)."""
     r.film_sum.zero_()
     r.film_w.zero_()
     return r.chunk_fn(r.states, r.film_sum, r.film_w, r.ray_total, r.stats,
@@ -2771,8 +2981,8 @@ def phase_kdtree(card, plain_s, plain_rays):
                             "staircase iteration 2")
     print(f"kdtree: {kd.tri_p0.shape[0]} tris, SAH build {build['s']:.1f} s "
           f"({kd.n_nodes} nodes, depth {walk['depth']}, widest leaf "
-          f"{kd.max_leaf}), setup {setup_s:.1f} s; {WIDTH}x{HEIGHT}, {SPP} "
-          f"spp, maxdepth {MAXDEPTH}: {text}; denoise "
+          f"{kd.max_leaf}), setup {setup_s:.1f} s; {WIDTH}x{HEIGHT}, "
+          f"{KDTREE_SPP} spp, maxdepth {MAXDEPTH}: {text}; denoise "
           f"{log['denoise_s'] * 1e3:.1f} ms; walk: {len(walks)} calls, "
           f"{walk['mean_steps']:.1f} steps a call on average, "
           f"{walk['max_steps']} at most, cap {walk['cap']}, "
@@ -2911,7 +3121,7 @@ def phase_new_profiles(card, runs):
 
     out = {}
     for name, (r, i, render_s) in runs.items():
-        if i is None:  # one sample of the iteration (the kd-tree's)
+        if i is None:  # one sample of the iteration (the realistic one's)
             what, fn = f"1 of {r.s.ecfg.pixel_samples} samples", _one_sample
             render_s /= r.s.ecfg.pixel_samples
         elif callable(i):  # a few steps (MLT's)
@@ -2975,11 +3185,12 @@ def _print_build(cuda_build):
 
 
 # The iteration each new path profiles: sppm's third pass (after the two
-# measured); None: one sample, the kd-tree's (its ~4 million kernels an
-# iteration take ~5 minutes under the profiler) and the realistic
-# staircase's (one of its 4 samples, to make room for the albedo-LUT phase).
-_PROFILED = {"realistic": None, "kdtree": None, "ao_staircase": 1,
-             "ao_terrain": 1, "sppm": 3}
+# measured); None: one sample, the realistic staircase's (one of its 4
+# samples, to make room for the albedo-LUT phase).  The kd-tree is not
+# profiled: its one sample's ~1 million eager kernels took ~60 s under the
+# profiler, the time that B3's check on every main-path call takes.
+_PROFILED = {"realistic": None, "ao_staircase": 1, "ao_terrain": 1,
+             "sppm": 3}
 
 
 def _new_paths(card, phase, stair_s, stair_rays, terrain_s, terrain_rays):
@@ -3018,7 +3229,7 @@ def _new_results(new, new_ms):
                      "sppm": new["sppm"][4],
                      "new_kernels_profiled": {
                          k if _PROFILED[k] else f"{k}_one_sample":
-                         v["kernels"] for k, v in new_ms.items()}})
+                         v["kernels"] for k, v in new_ms.items() if v}})
     per_kernel = {b: {} for b in KERNEL_NAMES}
     for name, v in new.items():
         for b in KERNEL_NAMES:
@@ -3034,6 +3245,10 @@ BDPT_MAXDEPTH = 5
 # bootstrap.
 MLT_SMALL_CHAINS, MLT_SMALL_BOOTSTRAP, MLT_SMALL_STEPS = 512, 1024, 3
 MLT_PROFILED_STEPS = 2  # mutation steps under the profiler
+# The full-width MLT iteration's mutations a pixel, cut from 1 (113 steps)
+# to keep the whole run inside its time limit once B2's other forms joined
+# it; steps/s and mutations/s hardly depend on the count.
+MLT_PIXEL_SHARE = 0.5
 
 
 def _bdpt_splats(r, i):
@@ -3136,8 +3351,10 @@ def phase_bdpt_terrain(card, plain_s, plain_rays):
 def phase_mlt(card, plain_s, plain_rays):
     """Integrator "mlt" (bidirectional, maxdepth 5) on the staircase at
     full width: the bootstrap (65,536 paths, 8,192 chains seeded), then
-    one mutation a pixel (113 steps of 8,192 chains); B1 launches (counts
-    set to 0 before the bootstrap, read after the last step).  b, the
+    half a mutation a pixel (57 steps of 8,192 chains: the iteration's
+    target of mutations cut by MLT_PIXEL_SHARE to keep the whole run
+    inside its time limit); B1 launches (counts set to 0 before the
+    bootstrap, read after the last step).  b, the
     acceptance rate, the share of large steps, steps a second, mutations
     a second beside the staircase's rays/s, peak memory.  Returns
     (renderer, launches, the steps' s, mutations/s, summary)."""
@@ -3164,7 +3381,8 @@ def phase_mlt(card, plain_s, plain_rays):
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     steps = []
-    with _patched((PM, "step_stats", steps)):
+    with _patched((PM, "step_stats", steps),
+                  (r, "P", int(r.P * MLT_PIXEL_SHARE))):
         log = r.run_iteration(1)
     launches = _read_counts()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
@@ -3938,11 +4156,13 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
     # has run in a process, later launches cost the host more (a terrain
     # iteration took 6.2-7.2 s after a profile and 5.4-6.3 s before one,
     # in one run on an NVIDIA H100 80GB HBM3).
-    launches, rs, stair_s, stair_rays, filter_calls = phase(
+    launches, rs, stair_s, stair_rays, filter_calls, main_forms = phase(
         "staircase main path", phase_main_path, card)
     b2r = phase("B2 render inputs", phase_b2_render, card, other,
                 filter_calls)
     del filter_calls
+    b16_forms, b16 = phase("B2 range_bf16 render",
+                              phase_b2_range_bf16_render, card, rs)
     phase("small staircase", phase_small_reference, card, "staircase",
           scene_small())
     rates = phase("samplers", phase_samplers, card)
@@ -3995,8 +4215,9 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
     del vp
     all_ms = phase("new paths profile", phase_new_profiles, card,
                    {**{k: (v[0], _PROFILED[k], v[2])
-                       for k, v in new.items()}, **_bdpt_mlt_profiled(bm)})
-    new_ms = {k: all_ms[k] for k in new}
+                       for k, v in new.items() if k in _PROFILED},
+                    **_bdpt_mlt_profiled(bm)})
+    new_ms = {k: all_ms.get(k, {}) for k in new}
     bm_ms = {k: all_ms[k] for k in bm}
     new = {k: (None, *v[1:]) for k, v in new.items()}  # the renderers go
     bm = {k: (None, *v[1:]) for k, v in bm.items()}
@@ -4041,16 +4262,21 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
          "source": "statmc_tpu_torch/csrc/stat_filter.cu",
          "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
          "launches": launches["B2"], "main_path_ms": path_ms["B2"],
+         "range_bf16_denoiser_launches": b16_forms["f32"],
          "textured_launches": tx_launches["B2"],
          "textured_main_path_ms": tx_ms.get("B2"),
-         "max_abs_err": max(v["err"] for v in (*b2.values(), *b2r.values())),
-         "ms": b2[True]["ms"], "plain_ms": b2[True]["plain_ms"],
-         "bound_ms": b2[True]["bound_ms"], "bound_by": b2[True]["bound_by"],
+         "max_abs_err": max(v["err"] for v in (*b2["f32"].values(),
+                                                *b2r["f32"].values())),
+         "ms": b2["f32"][True]["ms"],
+         "plain_ms": b2["f32"][True]["plain_ms"],
+         "bound_ms": b2["f32"][True]["bound_ms"],
+         "bound_by": b2["f32"][True]["bound_by"],
          "library_ms": None,
          # The same on the render's own inputs (iteration 2's denoise).
-         "render_ms": b2r[True]["ms"], "render_plain_ms": b2r[True]["plain_ms"],
-         "render_bound_ms": b2r[True]["bound_ms"],
-         "render_accepted": b2r[True]["accepted"],
+         "render_ms": b2r["f32"][True]["ms"],
+         "render_plain_ms": b2r["f32"][True]["plain_ms"],
+         "render_bound_ms": b2r["f32"][True]["bound_ms"],
+         "render_accepted": b2r["f32"][True]["accepted"],
          # As FilterApply's backward kernel (normalize=False) at 1280x720,
          # r = 20: B2's launches in one forward + backward, its own time.
          "filter_apply_launches": b2b["launches"], "backward_ms": b2b["ms"],
@@ -4112,6 +4338,37 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
                   **{f"mesh_{m}_launches": [c[b] for c in mesh["launches"][m]]
                      for m in ("2x2_4cards", "1x4_4cards")
                      if m in mesh["launches"]}})
+    # B2's other forms: launches by form as read back from the main path's
+    # two runs of this script (the staircase render, all f32, and its
+    # denoise through Renderer(denoiser=StatDenoiser(range_bf16=True)); no
+    # entry point reaches the acceptance forms, as in the JAX package);
+    # ms, plain_ms (whole image, once) and bound on the test inputs,
+    # normalized; the render's own inputs beside them.
+    for form in _b2_forms_tested():
+        t, rr = b2[form], b2r[form]
+        kernels.append({
+            "name": f"B2 stat_filter {form}", "route": "cuda",
+            "source": "statmc_tpu_torch/csrc/stat_filter.cu",
+            "replaces": "statmc_tpu/denoise/filter_pallas.py:50",
+            "launches": main_forms[form] + b16_forms[form],
+            "main_path_launches": main_forms[form],
+            "range_bf16_denoiser_launches": b16_forms[form],
+            "max_abs_err": max(v["err"] for v in (*t.values(),
+                                                  *rr.values())),
+            "ms": t[True]["ms"], "plain_ms": t[True]["plain_ms"],
+            "bound_ms": t[True]["bound_ms"], "bound_by": t[True]["bound_by"],
+            "library_ms": None, "accepted": t[True]["accepted"],
+            "unnormalized_ms": t[False]["ms"],
+            "plain_crop_ms": t[True]["plain_crop_ms"],
+            "rel_mean_vs_f32": t[True]["rel_mean"],
+            "render_ms": rr[True]["ms"],
+            "render_bound_ms": rr[True]["bound_ms"],
+            "render_accepted": rr[True]["accepted"],
+            "render_rel_mean_vs_f32": rr[True]["rel_mean"],
+            "render_rel_max_vs_f32": rr[True]["rel_max"],
+            "render_mean_shift_vs_f32": rr[True]["mean_shift"],
+            **({"denoiser_film_f_rel_mean_vs_f32": b16["rel_mean"]}
+               if form == "range_bf16" else {})})
     print(json.dumps({"workflow": {
         "sampler_rays_per_s": rates, "replay_s": replay_s,
         "cli_launches": cli, "checkpoint_launches": ck_launches,

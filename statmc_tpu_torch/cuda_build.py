@@ -33,10 +33,12 @@ _SIGNATURES = {
     # stream
     "statmc_fused_intersect": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp, _vp,
                                _vp],
-    # mc, d2, fm, gb, valid, gb_factors, H, W, C, CF, G, radius, ds,
-    # normalize, out, wsum, stream
+    # mc, d2, fm, gb, valid, gb_factors (double), H, W, C, CF, G, radius,
+    # ds, normalize, accept_expand, range_bf16, accept_bf16, gs, out, wsum,
+    # stream
     "statmc_stat_filter": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                           _i, ctypes.c_float, _i, _vp, _vp, _vp],
+                           _i, ctypes.c_float, _i, _i, _i, _i, _vp, _vp, _vp,
+                           _vp],
     # bounds, rays, n_blocks, nf, vote, stream
     "statmc_twolevel_cull": [_vp, _vp, _i, _i, _vp, _vp],
     # packed, order, count, mask, n_words, feat, t_max, n_blocks, n_sub,

@@ -462,9 +462,14 @@ class Renderer:
     axis and merge with Chan's combine.  film_mean, buffers,
     write_outputs, save_checkpoint and denoise_from_disk then see the
     whole image (gathered over "px"; collectives that every rank calls),
-    and only rank 0 writes or prints."""
+    and only rank 0 writes or prints.
 
-    def __init__(self, setup: RenderSetup, mesh=None):
+    denoiser: a StatDenoiser (say, with range_bf16=True) that replaces the
+    default one, as statmc_tpu/driver.py:711's; the default is
+    StatDenoiser's defaults when a type is in the DenoiseGroup, else
+    none."""
+
+    def __init__(self, setup: RenderSetup, denoiser=None, mesh=None):
         self.s = setup
         self.device = setup.device
         self.mesh = mesh
@@ -495,11 +500,11 @@ class Renderer:
                                  or setup.cam.lens is not None)
                              else make_regen_chunk_fn(setup))
             self.max_samples_per_dispatch = 4  # samples per chunk call
-        self.denoiser = (
-            StatDenoiser(setup.ecfg, setup.width, setup.height,
-                         device=setup.device)
-            if any(c.enable and E.DENOISE_GROUP in c.groups
-                   for c in setup.ecfg.configs) else None)
+        if denoiser is None and any(c.enable and E.DENOISE_GROUP in c.groups
+                                    for c in setup.ecfg.configs):
+            denoiser = StatDenoiser(setup.ecfg, setup.width, setup.height,
+                                    device=setup.device)
+        self.denoiser = denoiser
         self.lead = mesh is None or mesh.rank == 0  # prints and writes
         self.progress = self.lead  # terminal progress bar (TTY only)
         self._slabs = None  # the mesh's denoise: row slabs or replicated

@@ -1,5 +1,6 @@
-"""Kernels B1-B4 against their plain PyTorch versions on the card (B2 also
-as the backward kernel of denoise/grad.py's FilterApply), an LD-sampler
+"""Kernels B1-B4 against their plain PyTorch versions on the card (B2 in
+each of its six forms, and as the backward kernel of denoise/grad.py's
+FilterApply), an LD-sampler
 render and a textured render on the card against the CPU, the
 environment map's sampling search at 2^20 lanes on the card against the
 CPU, a volpath render on the card against the CPU and B1 on its walks'
@@ -169,6 +170,67 @@ def test_b2_staged_kernel_matches_plain(cuda, normalize, H, W, C, CF, G, r,
         assert float(wk.min()) > 1.5
     elif kind == "valid_zeros":
         assert float(wk.min()) < 1.0
+
+
+# B2's other five forms on the render's shape (the exact instantiation),
+# G = 0 (the range flag acts not), an odd G (a zero pad plane) with r past
+# the image, the widest channel counts, and valid with zeros.
+B2_FORM_CASES = [c for c in B2_CASES if c[-1] in (
+    "render_shape", "r1", "r_past_image", "widest", "valid_zeros")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("H,W,C,CF,G,r,kind", B2_FORM_CASES)
+@pytest.mark.parametrize("form", list(FC.FORMS)[1:])
+def test_b2_form_kernel_matches_plain(cuda, form, normalize, H, W, C, CF, G,
+                                      r, kind):
+    """Each of B2's five other forms (range_bf16, accept_expand,
+    accept_bf16 and their pairs) launches its own kernel (counted under
+    its own form; with G = 0 under its acceptance form) and meets its
+    plain version, which rounds at the same places: where expf and the
+    library's exp differ, a bf16 weight moves by one bf16 ulp, 2^-8
+    relative on the raw sums and 2^-7 on the normalized output (rtol 1e-4
+    in the f32 range forms); atol 1e-6."""
+    kw = FC.FORMS[form]
+    rng = np.random.default_rng(H * W + C + 1)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=cuda)
+
+    valid = (rng.random((H, W)) > 0.3 if kind == "valid_zeros"
+             else np.ones((H, W)))
+    args = (t(rng.standard_normal((H, W, C))),
+            t(rng.gamma(2.0, 0.5, (H, W, C))), t(rng.random((H, W, CF))),
+            t(rng.random((H, W, G))), t(valid), r, -0.02,
+            tuple(-50.0 * rng.random(G)))
+    bf16 = bool(kw.get("range_bf16")) and G > 0
+    before = FC.run_filter.launches
+    by_form = dict(FC.run_filter.form_launches)
+    by_form[FC.form_of(kw.get("accept_expand", False), bf16,
+                       kw.get("accept_bf16", False))] += 1
+    ok, wk = FC.run_filter(*args, normalize=normalize, **kw)
+    assert FC.run_filter.launches == before + 1
+    assert FC.run_filter.form_launches == by_form
+    op, wp = FC.run_filter_plain(*args, normalize=normalize, **kw)
+    rtol = (2.0 ** -7 if normalize else 2.0 ** -8) if bf16 else 1e-4
+    torch.testing.assert_close(ok, op, rtol=rtol, atol=1e-6)
+    torch.testing.assert_close(wk, wp, rtol=2.0 ** -8 if bf16 else 1e-4,
+                               atol=1e-6)
+    if kind != "valid_zeros":
+        assert float(wk.min()) >= 1.0 - 2.0 ** -8
+
+
+@pytest.mark.gpu
+def test_b2_unbuilt_shape_raises(cuda):
+    """A channel count that no instantiation takes (C = 5 > 4) raises on
+    the card; it never gives way to the plain version."""
+    z = torch.zeros((4, 4, 5), device=cuda)
+    with pytest.raises(RuntimeError):
+        FC.run_filter(z, z, z, torch.zeros((4, 4, 0), device=cuda),
+                      torch.ones((4, 4), device=cuda), 1, -0.02, (),
+                      range_bf16=True)
 
 
 def _twolevel_case(cuda, n_tris, spread, size, ray_spread, seed, fsub=None):
