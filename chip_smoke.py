@@ -811,8 +811,8 @@ def phase_main_path(card):
     denoise's run_filter calls and B2's launches by form."""
     import numpy as np
     import torch
+    from statmc_tpu_torch import spans
 
-    from statmc_tpu_torch.accel import fused as F
     from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.driver import load
 
@@ -824,14 +824,12 @@ def phase_main_path(card):
         r = load(path, device="cuda")
         setup_s = time.perf_counter() - t0
         r.progress = False
-        F.intersect_tiles.launches = 0
-        FC.run_filter.launches = 0
-        FC.run_filter.form_launches = dict.fromkeys(FC.FORMS, 0)
+        spans.reset("kernel.")
         logs = r.render(iterations=2, verbose=False)
         torch.cuda.synchronize()
-        launches = {"B1": F.intersect_tiles.launches,
-                    "B2": FC.run_filter.launches}
-        forms = dict(FC.run_filter.form_launches)
+        launches = {"B1": spans.counted("kernel.B1"),
+                    "B2": spans.counted("kernel.B2")}
+        forms = FC.form_launches()
         filter_calls = _capture_filter_inputs(r)
         film = r.film_mean.cpu().numpy()
         film_f = r.film_f.cpu().numpy()
@@ -904,6 +902,7 @@ def phase_b2_range_bf16_render(card, r):
     clock around a synchronize).  Returns (B2's launches by form,
     results)."""
     import torch
+    from statmc_tpu_torch import spans
 
     from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.denoise.filter import StatDenoiser
@@ -914,14 +913,13 @@ def phase_b2_range_bf16_render(card, r):
                                             range_bf16=True,
                                             device=s.device))
     r16.states, r16.film_sum, r16.film_w = r.states, r.film_sum, r.film_w
-    FC.run_filter.launches = 0
-    FC.run_filter.form_launches = dict.fromkeys(FC.FORMS, 0)
+    spans.reset("kernel.")
     t0 = time.perf_counter()
     r16._denoise()
     torch.cuda.synchronize()
     denoise_s = time.perf_counter() - t0
-    launches = FC.run_filter.launches
-    forms = dict(FC.run_filter.form_launches)
+    launches = spans.counted("kernel.B2")
+    forms = FC.form_launches()
     f16, f32 = r16.film_f, r.film_f
     rel = (f16 - f32).abs() / (f32.abs() + 1e-6)
     res = dict(rel_mean=float(rel.mean()), rel_max=float(rel.max()),
@@ -1083,23 +1081,16 @@ def textured_small(tmp):
                                iterations=2, maxdepth=4, seed=SEED)
 
 
-def _counters():
-    """{kernel: the wrapper whose `launches` counts its launches}."""
-    from statmc_tpu_torch.accel import fused as F
-    from statmc_tpu_torch.accel import twolevel as TT
-    from statmc_tpu_torch.denoise import filter_cuda as FC
-
-    return {"B1": F.intersect_tiles, "B2": FC.run_filter, "B3": TT.cull,
-            "B4": TT.walk}
-
-
 def _zero_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    from statmc_tpu_torch.__main__ import launches
+
+    launches(reset=True)
 
 
 def _read_counts():
-    return {k: fn.launches for k, fn in _counters().items()}
+    from statmc_tpu_torch.__main__ import launches
+
+    return launches()
 
 
 def _albedo_detail(bufs):
@@ -1257,17 +1248,17 @@ def phase_terrain_main_path(card):
     the B3/B4 phase)."""
     import numpy as np
     import torch
+    from statmc_tpu_torch import spans
 
-    from statmc_tpu_torch.accel import twolevel as TT
 
     held = torch.cuda.memory_allocated()  # the staircase renderer's
     r, setup_s = _terrain_renderer()
     torch.cuda.reset_peak_memory_stats()
-    TT.cull.launches = 0
-    TT.walk.launches = 0
+    spans.reset("kernel.")
     log = r.render(iterations=1, verbose=False)[-1]
     torch.cuda.synchronize()
-    launches = {"B3": TT.cull.launches, "B4": TT.walk.launches}
+    launches = {"B3": spans.counted("kernel.B3"),
+                "B4": spans.counted("kernel.B4")}
     peak = torch.cuda.max_memory_allocated() - held
     film = r.film_mean.cpu().numpy()
     if not (np.isfinite(film).all() and film.mean() > 0):
@@ -1668,8 +1659,8 @@ def phase_samplers(card):
     mesh phases joined the run, each sampler ran twice, in turns back;
     its second run was cut to keep the run inside its time limit.)"""
     import numpy as np
+    from statmc_tpu_torch import spans
 
-    from statmc_tpu_torch.accel import fused as F
     from statmc_tpu_torch.driver import load
 
     runs = {}
@@ -1680,9 +1671,9 @@ def phase_samplers(card):
                 _scene_text(WIDTH, HEIGHT, SAMPLER_SPP), sampler))
             r = load(path, device="cuda")
             r.progress = False
-            F.intersect_tiles.launches = 0
+            spans.reset("kernel.")
             log = r.render(iterations=1, verbose=False)[-1]
-            launches = F.intersect_tiles.launches
+            launches = spans.counted("kernel.B1")
             film = r.film_mean.cpu().numpy()
             if not (np.isfinite(film).all() and film.mean() > 0
                     and launches > 0):
@@ -1716,6 +1707,7 @@ def phase_b2_backward(card):
     10 after 3 warm-ups), with the backward's bound."""
     import numpy as np
     import torch
+    from statmc_tpu_torch import spans
 
     from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.denoise import grad as TG
@@ -1729,10 +1721,10 @@ def phase_b2_backward(card):
     g = torch.as_tensor(rng.standard_normal(fm.shape).astype(np.float32),
                         device="cuda")
     x = fm.clone().requires_grad_(True)
-    FC.run_filter.launches = 0
+    spans.reset("kernel.")
     TG.filter_apply(x, mc, d2, gb, valid, RADIUS, ds, gf).backward(g)
     torch.cuda.synchronize()
-    launches = FC.run_filter.launches
+    launches = spans.counted("kernel.B2")
     if launches != 2:
         raise AssertionError(f"FilterApply: {launches} B2 launches, not 2")
     _, wsum_p = FC.run_filter_plain(mc, d2, fm, gb, valid, RADIUS, ds, gf)
@@ -1824,8 +1816,8 @@ def phase_reference_parity(card):
     are recorded, and B1 is held on each against its plain version, bit
     for bit.  Returns ({scene: seconds}, {scene: B1 calls checked})."""
     import numpy as np
+    from statmc_tpu_torch import spans
 
-    from statmc_tpu_torch.accel import fused as F
     from statmc_tpu_torch.driver import load
     from statmc_tpu_torch.io.pfm import read_pfm
     from statmc_tpu_torch.render import intersect as TI
@@ -1848,11 +1840,11 @@ def phase_reference_parity(card):
                  device="cuda")
         TI.intersect_fused = record
         try:
-            F.intersect_tiles.launches = 0
+            spans.reset("kernel.")
             t0 = time.perf_counter()
             rep = r.render_lockstep_exact(spp=4)
             times[stem] = time.perf_counter() - t0
-            launches = F.intersect_tiles.launches
+            launches = spans.counted("kernel.B1")
         finally:
             TI.intersect_fused = real
         n_calls, live_lo, live_hi, few = _b1_on_calls(calls)
@@ -1900,9 +1892,8 @@ def phase_checkpoint(card):
     uninterrupted render bit for bit, and the resumed iteration launched
     B1 and B2.  Returns their launches in it."""
     import torch
+    from statmc_tpu_torch import spans
 
-    from statmc_tpu_torch.accel import fused as F
-    from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.driver import load
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1918,11 +1909,10 @@ def phase_checkpoint(card):
         b = load(path, base_seed=5, device="cuda")
         b.progress = False
         nxt = b.restore_checkpoint(ck)
-        F.intersect_tiles.launches = 0
-        FC.run_filter.launches = 0
+        spans.reset("kernel.")
         b.render(iterations=2, verbose=False, start_iteration=nxt)
-        launches = {"B1": F.intersect_tiles.launches,
-                    "B2": FC.run_filter.launches}
+        launches = {"B1": spans.counted("kernel.B1"),
+                    "B2": spans.counted("kernel.B2")}
     pairs = [("film", b.film_mean, full.film_mean),
              ("film-f", b.film_f, full.film_f),
              ("ray_total", b.ray_total, full.ray_total)]

@@ -132,6 +132,7 @@ def run(args, r, mesh=None) -> int:
                 say(f"Rays traced: {int(log['rays_total'])}")
                 say("Collectives time [ns]: " + json.dumps(
                     {k: int(v * 1e9) for k, v in log["comm_s"].items()}))
+                say("Collectives bytes: " + json.dumps(log["comm_bytes"]))
             t0 = time.perf_counter()
             if args.writeimages:
                 for w in r.write_outputs(args.outdir, i):
@@ -152,16 +153,13 @@ def run(args, r, mesh=None) -> int:
 
 
 def launches(reset=False):
-    """Each kernel's launch count ({"B1": n, ...}), set to 0 if asked."""
-    from .accel import fused, twolevel
-    from .denoise import filter_cuda
+    """Each kernel's launch count ({"B1": n, ...}, the counters kernel.B1
+    .. kernel.B4 of spans.py), set to 0 if asked."""
+    from . import spans
 
-    fns = {"B1": fused.intersect_tiles, "B2": filter_cuda.run_filter,
-           "B3": twolevel.cull, "B4": twolevel.walk}
     if reset:
-        for fn in fns.values():
-            fn.launches = 0
-    return {k: fn.launches for k, fn in fns.items()}
+        spans.reset("kernel.")
+    return {k: spans.counted("kernel." + k) for k in ("B1", "B2", "B3", "B4")}
 
 
 def _report_launches(r, mesh=None):

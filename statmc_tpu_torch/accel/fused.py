@@ -28,7 +28,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, spans
 from . import plucker
 
 TRI_TILE = 256  # triangles per tile
@@ -200,8 +200,8 @@ def intersect_plain(edge_table, plane_table, raye, rayp, t_max,
 def intersect_tiles(edge_table, plane_table, raye, rayp, t_max, packed=None,
                     n_tris=None):
     """Kernel B1 wrapper: same contract as `intersect_plain`.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel, and
-    `intersect_tiles.launches` counts the launches.  The kernel reads
+    take the plain version; CUDA tensors launch the kernel, and the
+    counter kernel.B1 (spans.py) counts the launches.  The kernel reads
     `packed` (FusedTris.packed); a caller that holds only the two tables
     leaves it None and it is packed from them here.  n_tris
     (FusedTris.n_tris) says that the rows from n_tris on are padding, all
@@ -241,11 +241,8 @@ def intersect_tiles(edge_table, plane_table, raye, rayp, t_max, packed=None,
         packed.data_ptr(), R, nsub, n_tris,
         t_out.data_ptr(), id_out.data_ptr(), ctypes.c_void_p(stream))
     cuda_build.check(rc, "statmc_fused_intersect")
-    intersect_tiles.launches += 1
+    spans.count("kernel.B1", 1)
     return t_out, id_out
-
-
-intersect_tiles.launches = 0
 
 
 def intersect_fused(ft: FusedTris, o, d, t_max):

@@ -40,7 +40,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, spans
 from . import plucker
 from .fused import _morton
 
@@ -53,7 +53,6 @@ _NCOLS = 5 * ST  # table columns: [w0|w1|w2|num|den] * ST
 _ROWS = 10  # feature rows that can be non-zero
 _CULL_CHUNK = 1 << 25  # (ray, subgroup) pairs per plain-cull step
 SUB_RAYS = 128  # rays per sub-block of kernel B3's reject, at most
-_stage = torch.profiler.record_function  # a named range in profiler traces
 
 
 class TwoLevelTris(NamedTuple):
@@ -367,8 +366,8 @@ def cull_two_stage(bounds, rays):
 
 def cull(bounds, rays):
     """Kernel B3 wrapper: same contract as `cull_plain`.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel, and
-    `cull.launches` counts the launches."""
+    take the plain version; CUDA tensors launch the kernel, and the
+    counter kernel.B3 (spans.py) counts the launches."""
     if not rays.is_cuda:
         return cull_plain(bounds, rays)
     G, nf = rays.shape[0], bounds.shape[0]
@@ -379,11 +378,8 @@ def cull(bounds, rays):
         bounds.data_ptr(), rays.data_ptr(), G, nf, vote.data_ptr(),
         _stream(rays))
     cuda_build.check(rc, "statmc_twolevel_cull")
-    cull.launches += 1
+    spans.count("kernel.B3", 1)
     return vote
-
-
-cull.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -507,10 +503,10 @@ def walk_plain(table, order, n_eff, mask, feat, t_max, fsub: int):
 
 def walk(table, order, n_eff, mask, feat, t_max, fsub: int, packed=None):
     """Kernel B4 wrapper: same contract as `walk_plain`.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel, and `walk.launches`
-    counts the launches.  The kernel reads `packed` (TwoLevelTris.packed);
-    a caller that holds only `table` leaves it None and it is packed
-    here."""
+    the plain version; CUDA tensors launch the kernel, and the counter
+    kernel.B4 (spans.py) counts the launches.  The kernel reads `packed`
+    (TwoLevelTris.packed); a caller that holds only `table` leaves it
+    None and it is packed here."""
     if not t_max.is_cuda:
         return walk_plain(table, order, n_eff, mask, feat, t_max, fsub)
     G = t_max.shape[0]
@@ -535,11 +531,8 @@ def walk(table, order, n_eff, mask, feat, t_max, fsub: int, packed=None):
         mask.data_ptr(), nw, feat.data_ptr(), t_max.data_ptr(), G, nst,
         fsub, t_out.data_ptr(), id_out.data_ptr(), _stream(t_max))
     cuda_build.check(rc, "statmc_twolevel_walk")
-    walk.launches += 1
+    spans.count("kernel.B4", 1)
     return t_out, id_out
-
-
-walk.launches = 0
 
 
 def _stream(x):
@@ -561,23 +554,23 @@ def intersect_twolevel(tl: TwoLevelTris, o, d, t_max, sort: bool = True):
     fused.intersect_fused.  sort=True partitions the rays into coherent
     blocks first and restores the caller's lane order after; results are
     the same either way (the cull is conservative).  Each stage runs in a
-    ``twolevel.*`` profiler range, so a torch.profiler trace shows where a
-    call's host and device time go."""
+    ``twolevel.*`` span (spans.py), so a torch.profiler trace shows where
+    a call's host and device time go."""
     R = o.shape[0]
-    with _stage("twolevel.partition"):
+    with spans.span("twolevel.partition"):
         pos, o_p, d_p, tm_p = blocks(tl, o, d, t_max, sort)
-    with _stage("twolevel.slab_rays"):
+    with spans.span("twolevel.slab_rays"):
         rays = slab_rays(o_p, d_p, tm_p)
-    with _stage("twolevel.cull"):
+    with spans.span("twolevel.cull"):
         vote_f = cull(tl.bounds, rays)
-    with _stage("twolevel.worklists"):
+    with spans.span("twolevel.worklists"):
         order, n_eff, mask = worklists(tl, vote_f)
-    with _stage("twolevel.features"):
+    with spans.span("twolevel.features"):
         feat = block_features(o_p, d_p)
-    with _stage("twolevel.walk"):
+    with spans.span("twolevel.walk"):
         t, idx = walk(tl.table, order, n_eff, mask, feat,
                       tm_p.reshape(-1, RT_WALK), tl.fsub, tl.packed)
-    with _stage("twolevel.unsort"):
+    with spans.span("twolevel.unsort"):
         t, idx = t.reshape(-1)[:R], idx.reshape(-1)[:R]
         if tl.perm is not None:
             idx = torch.where(idx >= 0,

@@ -16,12 +16,14 @@ serial PCG32 draws (core/lockstep.py).  Every mode is bit-exact with
 the JAX package's.
 
 uint32 arithmetic is emulated in int64 and masked to 32 bits, so keys
-are int64 tensors [..., 2] holding uint32 values.
+are int64 tensors [..., 2] holding uint32 values.  Every ``draw_1d`` and
+``draw_2d`` call runs in the span ``rng.draw`` (spans.py).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import spans
 from . import math as cm
 
 # Draw-site slot numbers (statmc_tpu/core/rng.py).
@@ -316,6 +318,7 @@ def _ld_draw(words, mode: int, n, bounce, slot: int, k: int,
     return sbl.sobol_1d(torch.broadcast_to(dim, nn.shape), nn, words[:, k])
 
 
+@spans.spanned("rng.draw")
 def draw_1d(keys, ld, mode: int, bounce, slot: int):
     """One uniform per lane at draw site (bounce, slot) under `mode`;
     ld = (scramble keys [P,2], sample index), a lockstep (table, index),
@@ -328,6 +331,7 @@ def draw_1d(keys, ld, mode: int, bounce, slot: int):
     return _ld_draw(_ld_fold(scr, bounce, slot), mode, n, bounce, slot, 0)
 
 
+@spans.spanned("rng.draw")
 def draw_2d(keys, ld, mode: int, bounce, slot: int):
     """[P,2] uniforms at draw site (bounce, slot) under `mode`."""
     if mode == MODE_LOCKSTEP and ld is not None:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..stats import estimator as E
 from .filter_cuda import run_filter
@@ -130,6 +131,7 @@ class StatDenoiser:
             -0.5 / (ecfg.filter_sd * ecfg.filter_sd)))
         self.radius = int(ecfg.filter_radius)
 
+    @spans.spanned("denoise.gbuffers")
     def _gbuffers(self, states, height=None):
         """Enabled filter G-buffer means as planes [H,W,G] and one range
         factor per plane; `height` overrides H (a mesh's row slab)."""
@@ -147,6 +149,7 @@ class StatDenoiser:
             return torch.cat(planes, -1), tuple(pfac)
         return torch.zeros((H, self.W, 0), device=self.tq.device), ()
 
+    @spans.spanned("denoise.filter")
     def __call__(self, state: dict, film, gbufs, halo=None) -> dict:
         """Filter all bounce buffers of one stat type.  state: moment
         state [NB,P,C] of P = H W pixels (or of a row slab); film: [H,W,3]

@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, spans
 from ..core import math as cm
 
 BF16 = torch.bfloat16
@@ -150,11 +150,11 @@ def run_filter(mc, d2, fm, gbufs, valid, radius: int, ds_factor: float,
                range_bf16: bool = False, accept_bf16: bool = False):
     """Kernel B2 wrapper, arguments and flags as the JAX package's
     _run_filter.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel in the form the flags name (every form is built).
-    `run_filter.launches` counts the launches, and
-    `run_filter.form_launches` counts them by the form launched (a key of
-    FORMS; range_bf16 with no G-buffer planes launches its acceptance
-    form)."""
+    the kernel in the form the flags name (every form is built).  The
+    counter kernel.B2 (spans.py) counts the launches, and
+    kernel.B2.<form> counts them by the form launched (a key of FORMS;
+    range_bf16 with no G-buffer planes launches its acceptance form):
+    form_launches() reads them."""
     if not mc.is_cuda:
         return run_filter_plain(mc, d2, fm, gbufs, valid, radius, ds_factor,
                                 gb_factors, normalize, accept_expand,
@@ -192,11 +192,13 @@ def run_filter(mc, d2, fm, gbufs, valid, radius: int, ds_factor: float,
         None if gs is None else gs.data_ptr(), out.data_ptr(), wsum.data_ptr(),
         ctypes.c_void_p(stream))
     cuda_build.check(rc, "statmc_stat_filter")
-    run_filter.launches += 1
-    run_filter.form_launches[form_of(accept_expand, range16,
-                                     accept_bf16)] += 1
+    spans.count("kernel.B2", 1)
+    spans.count("kernel.B2." + form_of(accept_expand, range16, accept_bf16),
+                1)
     return out, wsum
 
 
-run_filter.launches = 0
-run_filter.form_launches = dict.fromkeys(FORMS, 0)
+def form_launches() -> dict:
+    """B2's launches by form ({form: n} over FORMS), from the counters
+    kernel.B2.<form>."""
+    return {f: spans.counted("kernel.B2." + f) for f in FORMS}

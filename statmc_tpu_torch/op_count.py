@@ -28,7 +28,9 @@ connections and the t = 1 splats' scatter) and under mlt (maxdepth 5,
 bidirectional, 1,024 chains and a 8,192-path bootstrap: the op counts of
 a step do not depend on the chain count; ``count.mlt_step`` is one
 mutation step's ops outside f's ``bdpt.*`` ranges, ``count.mlt_bootstrap``
-the bootstrap's).
+the bootstrap's).  Under the profiler the port's spans record
+(spans.py), so each intersect call also counts its live lanes: three ops
+a call that an untraced step does not launch.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import tempfile
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import spans
 from .accel import fused, kdtree, twolevel
 from .core import rng
 from .driver import load
@@ -75,13 +78,6 @@ _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
 _RANGES = ("hair.", "sss.", "volume.", "fourier.", "bdpt.", "count.")
 
 
-def _ranged(name, fn):
-    def wrapped(*a, **k):
-        with torch.profiler.record_function(name):
-            return fn(*a, **k)
-    return wrapped
-
-
 def count(text: str):
     """(bounce steps, ops a step, {range: (calls, ops a call)}) of one
     iteration of the scene `text` on the CPU."""
@@ -89,11 +85,11 @@ def count(text: str):
                (twolevel, "walk_plain")]
     old = [(m, n, getattr(m, n)) for m, n in patches]
     for m, n in patches:
-        setattr(m, n, _ranged(_PLAIN, getattr(m, n)))
+        setattr(m, n, spans.spanned(_PLAIN)(getattr(m, n)))
     for name, sites in _SITES.items():
         for m, n in sites:
             old.append((m, n, getattr(m, n)))
-            setattr(m, n, _ranged(name, getattr(m, n)))
+            setattr(m, n, spans.spanned(name)(getattr(m, n)))
     steps = [0]
     for mod, name in ((integrator, "_bounce_step"),
                       (volume, "_volpath_step")):

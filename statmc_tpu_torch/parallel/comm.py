@@ -5,12 +5,15 @@ the JAX package's shard_map collectives: ``psum`` and ``pmax`` are
 (``halo_rows``).  NCCL takes CUDA tensors; gloo, which a mesh of several
 ranks on one card or on the CPU uses, takes host tensors, so a CUDA
 tensor on a gloo group travels through a host copy.  A group of one rank
-moves nothing.
+moves nothing.  Each collective adds the bytes that this rank hands to it
+to the host counter mesh.bytes (spans.py).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from .. import spans
 
 
 def size(group=None) -> int:
@@ -29,6 +32,7 @@ def all_gather(x, group=None) -> list:
     host = _host(group, x)
     src = x.detach().contiguous()
     src = src.cpu() if host else src
+    spans.count("mesh.bytes", src.numel() * src.element_size())
     out = [torch.empty_like(src) for _ in range(size(group))]
     dist.all_gather(out, src, group=group)
     return [o.to(x.device) for o in out] if host else out
@@ -41,6 +45,7 @@ def all_reduce(x, op: str = "sum", group=None):
         return x
     y = (x.detach().cpu() if _host(group, x)
          else x.detach().clone()).contiguous()
+    spans.count("mesh.bytes", y.numel() * y.element_size())
     dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM,
                            "max": dist.ReduceOp.MAX}[op], group=group)
     return y.to(x.device)
@@ -62,6 +67,7 @@ def halo_rows(x, r: int, group, prev: int | None, nxt: int | None):
     for peer, send, recv in ((prev, x[:r], top), (nxt, x[-r:], bot)):
         if peer is not None:
             send = send.contiguous()
+            spans.count("mesh.bytes", send.numel() * send.element_size())
             ops += [dist.P2POp(dist.isend, send.cpu() if host else send,
                                peer, group),
                     dist.P2POp(dist.irecv, recv, peer, group)]

@@ -33,6 +33,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from .. import spans
 from ..stats import moments
 from . import comm
 
@@ -54,21 +55,30 @@ class Mesh:
     prev: int | None  # global rank of the px neighbour above (None at 0)
     next: int | None  # and below
     comm_s: dict = field(default_factory=dict)  # seconds by collective
+    comm_bytes: dict = field(default_factory=dict)  # bytes by collective
 
     @contextlib.contextmanager
     def timed(self, name: str):
         """Adds the host seconds of the block, between two synchronizes
-        of the device, to comm_s[name]."""
+        of the device, to comm_s[name], and the bytes that this rank
+        handed to its collectives (the counter mesh.bytes of comm.py) to
+        comm_bytes[name] and to the counter mesh.bytes.<name>; the block
+        runs in the span mesh.<name>."""
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda *a: None))
         sync(self.device)
         t0 = time.perf_counter()
+        b0 = spans.counted("mesh.bytes")
         try:
-            yield
+            with spans.span("mesh." + name):
+                yield
         finally:
             sync(self.device)
             self.comm_s[name] = (self.comm_s.get(name, 0.0)
                                  + time.perf_counter() - t0)
+            nbytes = spans.counted("mesh.bytes") - b0
+            self.comm_bytes[name] = self.comm_bytes.get(name, 0) + nbytes
+            spans.count("mesh.bytes." + name, nbytes)
 
     def barrier(self):
         if self.backend == "nccl":

@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..core import rng as crng
 from ..core import spectrum as spec
@@ -694,16 +695,16 @@ class BDPTRenderer(AltRenderer):
         pxy = torch.stack([(ids % s.width).to(torch.float32),
                            (ids // s.width).to(torch.float32)], -1) \
             + keys.d2(0, crng.SLOT_CAMERA)
-        with torch.profiler.record_function("bdpt.camera_walk"):
+        with spans.span("bdpt.camera_walk"):
             o0, d0 = camera_rays(s.cam, pxy)
             pt = self._camera_walk(keys, o0, d0, D + 2)
-        with torch.profiler.record_function("bdpt.light_walk"):
+        with spans.span("bdpt.light_walk"):
             qs = self._light_walk(keys, D + 1)
         flt = self.strategy_filter
         sts = [st for st in self.strategies() + [(s_n, 1)
                                                  for s_n in range(2, D + 2)]
                if flt is None or st in flt]
-        with torch.profiler.record_function("bdpt.connect"):
+        with spans.span("bdpt.connect"):
             outs = self.connect(qs, pt, keys, sts)
         film = torch.zeros((P, 3), device=dev)
         splat = torch.zeros((P, 3), device=dev)
@@ -715,7 +716,7 @@ class BDPTRenderer(AltRenderer):
                 film = film + out[0] * w[:, None]
                 continue
             # t = 1: the light subpath's splat onto the camera's pixels.
-            with torch.profiler.record_function("bdpt.splat"):
+            with spans.span("bdpt.splat"):
                 contrib, idx, _, valid = out
                 lanes = torch.nonzero(valid)[:, 0]
                 if splat_stats is not None:
@@ -1032,13 +1033,13 @@ class BDPTRenderer(AltRenderer):
             keys = _Draws(U=U, skip=2)
             px = torch.clamp(U[:, 0] * W, 0.0, W - 1e-3)
             py = torch.clamp(U[:, 1] * H, 0.0, H - 1e-3)
-            with torch.profiler.record_function("bdpt.camera_walk"):
+            with spans.span("bdpt.camera_walk"):
                 o0, d0 = camera_rays(s.cam, torch.stack([px, py], -1))
                 pt = self._camera_walk(keys, o0, d0, D + 2)
-            with torch.profiler.record_function("bdpt.light_walk"):
+            with spans.span("bdpt.light_walk"):
                 qs = self._light_walk(keys, D + 1, n_lanes=C)
             L = torch.zeros((C, 3), device=U.device)
-            with torch.profiler.record_function("bdpt.connect"):
+            with spans.span("bdpt.connect"):
                 for c, w in self.connect(qs, pt, keys, self.strategies()):
                     L = L + c * w[:, None]
             pix = py.to(torch.int32) * W + px.to(torch.int32)

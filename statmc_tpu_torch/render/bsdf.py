@@ -20,6 +20,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..scene import build as sb
 from ..scene.textures import sample_texture
@@ -519,7 +520,7 @@ def evaluate(m: MaterialLanes, wo, wi, present=None):
         # The Marschner model overrides the fallback pair on hair lanes;
         # after the reflection mask, since hair scatters into the whole
         # sphere (hair.cpp:418-480, 602-664).
-        with torch.profiler.record_function("hair.eval_f"):
+        with spans.span("hair.eval_f"):
             f_h, pdf_h = hair.eval_f_pdf(_hair_lanes(m), wo, wi)
             sel = t == sb.MAT_HAIR
             f = torch.where(sel[..., None], f_h, f)
@@ -635,7 +636,7 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
     if has_glass:
         wi = torch.where(choose_refr[..., None], wi_refr, wi)
     if hair_model:
-        with torch.profiler.record_function("hair.sample_wi"):
+        with spans.span("hair.sample_wi"):
             wi = torch.where((t == sb.MAT_HAIR)[..., None],
                              hair.sample_wi(_hair_lanes(m), wo, u2, uc), wi)
     ft = _fourier_lanes(m, present)

@@ -43,6 +43,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import math as cm
 
 M_CAP = 64  # dense padded Fourier-order cap (see module docstring)
@@ -348,7 +349,7 @@ def eval_f(tab: FourierTables, fid, wo, wi):
 
     fid: [R] table index (lanes with fid < 0 return 0); wo/wi: [R, 3] in
     the local shading frame.  Returns RGB f [R, 3]."""
-    with torch.profiler.record_function("fourier.eval"):
+    with spans.span("fourier.eval"):
         R = wo.shape[0]
         f = torch.clamp(fid, min=0).long()
         mu_rows = tab.mu[f]
@@ -527,7 +528,7 @@ def _sample_fourier_phi(akY, u):
 def sample_wi(tab: FourierTables, fid, wo, u2):
     """FourierBSDF::Sample_f direction (reflection.cpp:429-480):
     returns (wi [R,3], pdf [R])."""
-    with torch.profiler.record_function("fourier.sample"):
+    with spans.span("fourier.sample"):
         mu_o = wo[:, 2]
         f = torch.clamp(fid, min=0).long()
         mu_i, pdf_mu, ok_mu = sample_mu_i(tab, f, mu_o, u2[:, 1])
@@ -551,7 +552,7 @@ def sample_wi(tab: FourierTables, fid, wo, u2):
 
 def pdf_wi(tab: FourierTables, fid, wo, wi):
     """FourierBSDF::Pdf (reflection.cpp:379-427)."""
-    with torch.profiler.record_function("fourier.eval"):
+    with spans.span("fourier.eval"):
         f = torch.clamp(fid, min=0).long()
         nP = tab.mu.shape[1]
         mu_i = -wi[:, 2]

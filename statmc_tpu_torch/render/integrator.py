@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..core import rng as crng
 from ..core import spectrum as spec
@@ -104,6 +105,7 @@ def _zero_path_carry(P: int, NL: int, NB: int, device) -> dict:
     )
 
 
+@spans.spanned("integrator.bounce_step")
 def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
                  avg_ls, win_bsdf, win_light, feedback_on: bool,
                  albedo_luts, ld_stream=None):
@@ -572,7 +574,9 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
     finish, in per-pixel sample order, so film sums and streaming
     moments equal the per-sample driver's.  The loop runs while any lane
     is live or has samples left, for at most n_samples * n_steps steps
-    (the JAX package's while_loop condition)."""
+    (the JAX package's while_loop condition).  A step runs in the spans
+    sync.wavefront (that condition), wavefront.regen,
+    integrator.bounce_step and wavefront.record (spans.py)."""
     P = pixel_ids.shape[0]
     dev = pixel_ids.device
     NL = cfg.n_ls
@@ -593,25 +597,28 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
     sis = torch.zeros((P,), dtype=torch.int32, device=dev)
 
     for _ in range(n_samples * n_steps):
-        if not bool(torch.any(live | (s_local + 1 < n_samples))):
+        with spans.span("sync.wavefront"):
+            more = bool(torch.any(live | (s_local + 1 < n_samples)))
+        if not more:
             break
         # --- regenerate finished lanes ---------------------------------
-        regen = ~live & (s_local + 1 < n_samples)
-        s_local = torch.where(regen, s_local + 1, s_local)
-        sample_idx = sample_start + torch.clamp(s_local, min=0)
-        fresh_keys = crng.pixel_keys(base_key, pixel_ids, sample_idx)
-        keys = torch.where(regen[:, None], fresh_keys, keys)
-        ld = (scr, sample_idx) if scr is not None else None
-        u_cam = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_CAMERA)
-        o_new, d_new = gen_ray_fn(u_cam)
-        fresh = _zero_path_carry(P, NL, NB, dev)
-        fresh["o"], fresh["d"] = o_new, d_new
-        for k, old in carry.items():
-            r = regen.reshape((P,) + (1,) * (old.dim() - 1))
-            carry[k] = torch.where(r, fresh[k], old)
-        live = live | regen
-        carry["active"] = carry["active"] & live
-        sis = torch.where(regen, 0, sis)
+        with spans.span("wavefront.regen"):
+            regen = ~live & (s_local + 1 < n_samples)
+            s_local = torch.where(regen, s_local + 1, s_local)
+            sample_idx = sample_start + torch.clamp(s_local, min=0)
+            fresh_keys = crng.pixel_keys(base_key, pixel_ids, sample_idx)
+            keys = torch.where(regen[:, None], fresh_keys, keys)
+            ld = (scr, sample_idx) if scr is not None else None
+            u_cam = crng.draw_2d(keys, ld, mode, 0, crng.SLOT_CAMERA)
+            o_new, d_new = gen_ray_fn(u_cam)
+            fresh = _zero_path_carry(P, NL, NB, dev)
+            fresh["o"], fresh["d"] = o_new, d_new
+            for k, old in carry.items():
+                r = regen.reshape((P,) + (1,) * (old.dim() - 1))
+                carry[k] = torch.where(r, fresh[k], old)
+            live = live | regen
+            carry["active"] = carry["active"] & live
+            sis = torch.where(regen, 0, sis)
 
         # --- one lockstep physics step ----------------------------------
         carry = _bounce_step(scene, bvh, dist, cfg, carry, sis, keys,
@@ -620,21 +627,22 @@ def trace_wavefront(scene, bvh, dist, cfg: IntegratorConfig, gen_ray_fn,
         sis = sis + 1
 
         # --- record finished samples ------------------------------------
-        done = live & (~carry["active"] | (sis >= n_steps))
-        out = _carry_output(cfg, carry)
-        # Non-done lanes contribute exact zeros, so masked moment updates
-        # are no-ops even if an in-flight lane holds inf/NaN.
-        dm = done[:, None]
-        out = out._replace(
-            ls=torch.where(done[:, None, None], out.ls, 0.0),
-            mis_bsdf=torch.where(dm, out.mis_bsdf, 0.0),
-            mis_light=torch.where(dm, out.mis_light, 0.0),
-            mat_id=torch.where(done, out.mat_id, 0.0),
-            depth=torch.where(done, out.depth, 0.0),
-            normal=torch.where(dm, out.normal, 0.0),
-            albedo=torch.where(dm, out.albedo, 0.0),
-            n_rays=torch.where(done, out.n_rays, 0.0),
-            path_len=torch.where(done, out.path_len, 0.0),
-        )
-        record_fn(out, done)
-        live = live & ~done
+        with spans.span("wavefront.record"):
+            done = live & (~carry["active"] | (sis >= n_steps))
+            out = _carry_output(cfg, carry)
+            # Non-done lanes contribute exact zeros, so masked moment
+            # updates are no-ops even if an in-flight lane holds inf/NaN.
+            dm = done[:, None]
+            out = out._replace(
+                ls=torch.where(done[:, None, None], out.ls, 0.0),
+                mis_bsdf=torch.where(dm, out.mis_bsdf, 0.0),
+                mis_light=torch.where(dm, out.mis_light, 0.0),
+                mat_id=torch.where(done, out.mat_id, 0.0),
+                depth=torch.where(done, out.depth, 0.0),
+                normal=torch.where(dm, out.normal, 0.0),
+                albedo=torch.where(dm, out.albedo, 0.0),
+                n_rays=torch.where(done, out.n_rays, 0.0),
+                path_len=torch.where(done, out.path_len, 0.0),
+            )
+            record_fn(out, done)
+            live = live & ~done

@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import spans
 from ..accel.fused import FusedTris, intersect_fused
 from ..accel.kdtree import KdTreeTris, intersect_kdtree
 from ..accel.twolevel import TwoLevelTris, intersect_twolevel
@@ -270,12 +271,25 @@ def _intersect_tris(bvh, o, d, t_max):
     return intersect_fused(bvh, o, d, t_max)
 
 
+def _count_lanes(kind: str, o, t_max):
+    """While tracing: the counters intersect.<kind>.lanes (the call's
+    rays) and .live (those with t_max > 0; dead lanes are queried with
+    t_max = 0), the second summed on the device."""
+    if spans.enabled():
+        spans.count(f"intersect.{kind}.lanes", o.shape[0])
+        live = t_max > 0
+        spans.count(f"intersect.{kind}.live",
+                    live if torch.is_tensor(live) else o.shape[0] * live)
+
+
+@spans.spanned("intersect.closest")
 def intersect_scene(scene: SceneTables, o, d, t_max,
                     bvh: FusedTris | TwoLevelTris | KdTreeTris | None,
                     lean: bool = False,
                     want_tangent: bool | None = None) -> Hit:
     """Closest hit: dense spheres, then triangles through B1, B3 + B4 or
     the kd walk.  bvh is None only for a scene without triangles."""
+    _count_lanes("closest", o, t_max)
     R = o.shape[0]
     t_best = t_max
     kind = torch.zeros((R,), dtype=torch.int32, device=o.device)
@@ -292,10 +306,12 @@ def intersect_scene(scene: SceneTables, o, d, t_max,
                          want_tangent=want_tangent)
 
 
+@spans.spanned("intersect.occluded")
 def occluded_scene(scene: SceneTables, o, d, t_max,
                    bvh: FusedTris | TwoLevelTris | KdTreeTris | None):
     """Any-hit (shadow) test via dense spheres + the triangle accelerator
     (a full closest hit, as in the JAX package)."""
+    _count_lanes("occluded", o, t_max)
     blocked = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     if scene.sph_center.shape[0] > 0:
         _, hit = ray_spheres(o, d, scene.sph_center, scene.sph_radius, t_max)

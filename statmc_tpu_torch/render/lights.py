@@ -5,7 +5,7 @@ outside points, and all light kinds are evaluated branchlessly and
 selected per lane with ``torch.where``.  The goniometric/projection block
 runs only for scenes with such lights and the environment-map branches
 only for a scene with a map (host decisions, as in the JAX package);
-those run in ``lights.env_map`` profiler ranges.
+those run in ``lights.env_map`` spans (spans.py).
 
 The environment map's conditional search does not gather a CDF row per
 lane (2^20 lanes x a 2048-wide row would be 8.6 GB): every row's CDF
@@ -21,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..scene import build as sb
 from ..scene.textures import KIND_IMAGE, sample_texture
@@ -223,7 +224,7 @@ def sample_li(scene: sb.SceneTables, light_id, ref_p, ref_ng, u2
     # luminance*sin(theta) Distribution2D, else map_pdf = 1.
     has_env = scene.env_light_id >= 0
     if has_env:
-        with torch.profiler.record_function("lights.env_map"):
+        with spans.span("lights.env_map"):
             He, We = scene.env_map.shape[:2]
             vrow, ucol = _env_sample(scene, u2)
             uu = (ucol.to(torch.float32) + 0.5) / We
@@ -239,7 +240,7 @@ def sample_li(scene: sb.SceneTables, light_id, ref_p, ref_ng, u2
     st = torch.sin(theta)
     wi_inf = cm.spherical_direction(st, torch.cos(theta), phi_i)
     if has_env:
-        with torch.profiler.record_function("lights.env_map"):
+        with spans.span("lights.env_map"):
             # Light-to-world: invert the stored world-to-light transform.
             l2w = torch.linalg.inv_ex(scene.env_world_to_light)[0]
             wi_inf = cm.transform_vector(l2w, wi_inf)
@@ -329,7 +330,7 @@ def pdf_li(scene: sb.SceneTables, light_id, ref_p, wi, hit_p, hit_ng,
 
     # Infinite light: direction -> (u,v) -> map pdf (infinite.cpp:Pdf_Li).
     if scene.env_light_id >= 0:
-        with torch.profiler.record_function("lights.env_map"):
+        with spans.span("lights.env_map"):
             vrow, ucol, theta = _env_texel(
                 scene, cm.transform_vector(scene.env_world_to_light, wi))
             map_pdf = scene.env_pdf_uv[vrow, ucol]
@@ -359,7 +360,7 @@ def escaped_radiance(scene: sb.SceneTables, d):
                       dim=0)
     out = out + total
     if scene.env_light_id >= 0:
-        with torch.profiler.record_function("lights.env_map"):
+        with spans.span("lights.env_map"):
             vrow, ucol, _ = _env_texel(scene, cm.transform_vector(
                 scene.env_world_to_light, cm.normalize(d)))
             # The map light's L is 1 in `total` (folded into the map).

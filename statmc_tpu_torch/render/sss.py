@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import math as cm
 
 # Probe-chain depth (bssrdf.cpp:303-321 walks until the segment exits).
@@ -355,7 +356,7 @@ def sample_sp(scene, bvh, tab: SSSTables, sid, po_p, frame, po_mat, u1, u2,
     + Pdf_Sp (bssrdf.cpp:332-352).  frame is po's shading frame
     (ss, ts, ns) = (frame.t, frame.b, frame.n); sid the per-lane table
     index (lanes with sid < 0 never fire)."""
-    with torch.profiler.record_function("sss.sample_sp"):
+    with spans.span("sss.sample_sp"):
         return _sample_sp(scene, bvh, tab, sid, po_p, frame, po_mat, u1,
                           u2, active)
 
@@ -400,7 +401,7 @@ def _sample_sp(scene, bvh, tab, sid, po_p, frame, po_mat, u1, u2, active):
     for _ in range(PROBE_STEPS):
         o_k = base + eps[..., None] * vz
         t_k = torch.clamp(remaining - 2.0 * eps, min=0.0)
-        with torch.profiler.record_function("sss.probe"):
+        with spans.span("sss.probe"):
             h = intersect_probe(scene, bvh, o_k, vz,
                                 torch.where(probe_on, t_k, 0.0))
         good = h.found & probe_on
@@ -474,7 +475,7 @@ def estimate_direct_sw(scene, bvh, dist, keys, dstep, pi_p, pi_ns, eta,
     of EstimateDirect, core/integrator.cpp:95-236), with plain
     power-heuristic MIS: the SMIS variant is not replicated at the exit
     vertex, as in the JAX package.  Draws ride the threefry SSS slots."""
-    with torch.profiler.record_function("sss.direct"):
+    with spans.span("sss.direct"):
         return _estimate_direct_sw(scene, bvh, dist, keys, dstep, pi_p,
                                    pi_ns, eta, c_sw, active)
 

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from .. import spans
 from ..core import math as cm
 from ..core import rng as crng
 from ..scene import build as sb
@@ -337,7 +338,7 @@ def sample_medium(scene: sb.SceneTables, cfg: IntegratorConfig, med, o, d,
     st = sa + ss  # [P,3]
     u = crng.uniform_2d(keys, step, crng.SLOT_MEDIUM)
 
-    with torch.profiler.record_function("volume.sample_medium"):
+    with spans.span("volume.sample_medium"):
         # Homogeneous closed form.
         chan = torch.clamp((u[:, 0] * 3).to(torch.int32), max=2).long()
         st_c = torch.gather(st, 1, chan[:, None])[:, 0]
@@ -389,7 +390,7 @@ def _segment_tr(scene: sb.SceneTables, cfg: IntegratorConfig, med, o, d,
     tr_h = _exp(-st * seg_c[:, None])
 
     if cfg.has_grid_media:
-        with torch.profiler.record_function("volume.segment_tr"):
+        with spans.span("volume.segment_tr"):
             is_grid = scene.med_kind[midx] == 1
             om, dm, t0, t1, inbox, st0, imd = _grid_setup(scene, midx, o, d,
                                                           seg_c)
@@ -463,7 +464,7 @@ def transmittance_walk(scene: sb.SceneTables, bvh, cfg: IntegratorConfig,
     remaining = t_max
     walking = t_max > 0
     first = real_any = None
-    with torch.profiler.record_function("volume.walk"):
+    with spans.span("volume.walk"):
         n_in, segs = int(walking.sum()) if track_stats is not None else 0, 0
         for k in range(K):
             if k and not _any_lane(walking):

@@ -27,6 +27,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
+
 TEX_NONE = -1
 MAX_MIP = 12  # mip chain cap (4096x4096 fully reduced)
 # Kinds for evaluated textures.
@@ -618,9 +620,9 @@ def sample_texture(table: TextureTable, tex_id, uv, p=None, uv_fp=None,
     footprint (major/minor uv axes) enabling the EWA-equivalent filter.
 
     Lanes with tex_id < 0 return 1.0 (callers multiply by a base color).
-    Runs in a ``textures.sample_texture`` profiler range.
+    Runs in a ``textures.sample_texture`` span (spans.py).
     """
-    with torch.profiler.record_function("textures.sample_texture"):
+    with spans.span("textures.sample_texture"):
         return _sample_texture(table, tex_id, uv, p, uv_fp, uv_axes)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from statmc_tpu_torch import spans
 from statmc_tpu_torch.accel import fused as TF
 from statmc_tpu_torch.accel import twolevel as TT
 from statmc_tpu_torch.denoise import filter as TFL
@@ -81,9 +82,9 @@ def test_b1_kernel_matches_plain(cuda, n, R, t_kind):
         torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)))
     args = (ft.edge_table, ft.plane_table, raye, rayp,
             torch.as_tensor(t_max, device=cuda))
-    before = TF.intersect_tiles.launches
+    before = spans.counted("kernel.B1")
     t_k, id_k = TF.intersect_tiles(*args, ft.packed, ft.n_tris)
-    assert TF.intersect_tiles.launches == before + 1
+    assert spans.counted("kernel.B1") == before + 1
     _bits_equal(t_k, id_k, *TF.intersect_plain(*args))
     _bits_equal(t_k, id_k, *TF.intersect_plain(*args, ft.n_tris))
     # Packed on the fly, and the padding rows walked like any other.
@@ -160,9 +161,9 @@ def test_b2_staged_kernel_matches_plain(cuda, normalize, H, W, C, CF, G, r,
             t(rng.random((H, W, CF))), t(rng.random((H, W, G))), t(valid),
             r, -0.02, tuple((-0.5 if kind == "high_accept" else -50.0)
                             * rng.random(G)))
-    before = FC.run_filter.launches
+    before = spans.counted("kernel.B2")
     ok, wk = FC.run_filter(*args, normalize=normalize)
-    assert FC.run_filter.launches == before + 1
+    assert spans.counted("kernel.B2") == before + 1
     op, wp = FC.run_filter_plain(*args, normalize=normalize)
     torch.testing.assert_close(ok, op, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-6)
@@ -206,13 +207,13 @@ def test_b2_form_kernel_matches_plain(cuda, form, normalize, H, W, C, CF, G,
             t(rng.random((H, W, G))), t(valid), r, -0.02,
             tuple(-50.0 * rng.random(G)))
     bf16 = bool(kw.get("range_bf16")) and G > 0
-    before = FC.run_filter.launches
-    by_form = dict(FC.run_filter.form_launches)
+    before = spans.counted("kernel.B2")
+    by_form = FC.form_launches()
     by_form[FC.form_of(kw.get("accept_expand", False), bf16,
                        kw.get("accept_bf16", False))] += 1
     ok, wk = FC.run_filter(*args, normalize=normalize, **kw)
-    assert FC.run_filter.launches == before + 1
-    assert FC.run_filter.form_launches == by_form
+    assert spans.counted("kernel.B2") == before + 1
+    assert FC.form_launches() == by_form
     op, wp = FC.run_filter_plain(*args, normalize=normalize, **kw)
     rtol = (2.0 ** -7 if normalize else 2.0 ** -8) if bf16 else 1e-4
     torch.testing.assert_close(ok, op, rtol=rtol, atol=1e-6)
@@ -263,9 +264,9 @@ def test_b3_kernel_matches_plain(cuda):
     rays[1, 1::2, 2] = float("inf")
     rays[1, 1::2, 5] = 0.0
     rays[2, ::3, 0] = float("nan")  # block 2: a NaN ray in three
-    before = TT.cull.launches
+    before = spans.counted("kernel.B3")
     vote = TT.cull(tl.bounds, rays)
-    assert TT.cull.launches == before + 1
+    assert spans.counted("kernel.B3") == before + 1
     assert torch.equal(vote, TT.cull_plain(tl.bounds, rays))
     assert vote.any() and not vote.all() and not vote[1].any()
 
@@ -339,9 +340,9 @@ def test_b3_reject_kernel_matches_plain(cuda, case):
     sorted camera-like blocks, unsorted mixed-octant blocks and special
     rays: votes equal cull_plain's bit for bit."""
     bounds, rays, _ = cull_case(case, cuda)
-    before = TT.cull.launches
+    before = spans.counted("kernel.B3")
     vote = TT.cull(bounds, rays)
-    assert TT.cull.launches == before + 1
+    assert spans.counted("kernel.B3") == before + 1
     assert torch.equal(vote, TT.cull_plain(bounds, rays))
     assert vote.any()
     if case == "dead_blocks":
@@ -375,9 +376,9 @@ def test_b4_kernel_matches_plain(cuda, case):
     assert bool((n_eff > TT.MAXS).any()) == dense
     walk_args = (tl.table, order, n_eff, mask, TT.block_features(o_p, d_p),
                  tm_p.reshape(-1, TT.RT_WALK), tl.fsub)
-    before = TT.walk.launches
+    before = spans.counted("kernel.B4")
     t_k, id_k = TT.walk(*walk_args, tl.packed)
-    assert TT.walk.launches == before + 1
+    assert spans.counted("kernel.B4") == before + 1
     t_p, id_p = TT.walk_plain(*walk_args)
     assert torch.equal(id_k, id_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
@@ -414,10 +415,10 @@ def test_b2_backward_kernel_matches_plain(cuda, valid_zeros):
     valid = t(valid)
     gf, ds = (-0.5 / 0.3 ** 2,) * G, -0.5 / 4.0
     x = fm.clone().requires_grad_(True)
-    before = FC.run_filter.launches
+    before = spans.counted("kernel.B2")
     out = TG.filter_apply(x, mc, d2, gb, valid, r, ds, gf)
     out.backward(g)
-    assert FC.run_filter.launches == before + 2  # forward + backward
+    assert spans.counted("kernel.B2") == before + 2  # forward + backward
     _, wsum = FC.run_filter_plain(mc, d2, fm, gb, valid, r, ds, gf)
     grad_p, _ = FC.run_filter_plain(
         mc, d2, (g / torch.clamp(wsum, min=1e-20)[..., None]).contiguous(),
@@ -479,10 +480,10 @@ def test_exact_replay_of_tiny_on_the_card(cuda):
     def ref(name):
         return read_pfm(os.path.join(fix, f"tiny-4-{name}.pfm"))
 
-    before = TF.intersect_tiles.launches
+    before = spans.counted("kernel.B1")
     rep = load(os.path.join(fix, "tiny.pbrt"), device=cuda
                ).render_lockstep_exact(spp=4)
-    assert TF.intersect_tiles.launches > before
+    assert spans.counted("kernel.B1") > before
     np.testing.assert_allclose(rep.film.reshape(16, 16, 3), ref("film"),
                                atol=2e-6, rtol=0)
     n, mean, m2, m3 = moments_from_samples(rep.radiance)
@@ -498,7 +499,6 @@ def test_textured_render_card_matches_cpu(cuda, tmp_path):
     goniometric light) on the card against the CPU: equal sample counts
     and ray totals, every buffer within rtol 1e-4 on 99% of its pixels;
     kernels B1 and B2 launched on the card."""
-    from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.driver import load
     from statmc_tpu_torch.testscenes import textured_scene_text
 
@@ -506,13 +506,13 @@ def test_textured_render_card_matches_cpu(cuda, tmp_path):
     path.write_text(textured_scene_text(str(tmp_path), width=32, height=24))
     runs = {}
     for dev in ("cuda", "cpu"):
-        b1, b2 = TF.intersect_tiles.launches, FC.run_filter.launches
+        b1, b2 = spans.counted("kernel.B1"), spans.counted("kernel.B2")
         r = load(str(path), device=dev)
         r.progress = False
         runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
         if dev == "cuda":
-            assert TF.intersect_tiles.launches > b1
-            assert FC.run_filter.launches > b2
+            assert spans.counted("kernel.B1") > b1
+            assert spans.counted("kernel.B2") > b2
     assert runs["cuda"][0] == runs["cpu"][0]
     gpu, cpu = runs["cuda"][1], runs["cpu"][1]
     assert gpu.keys() == cpu.keys()
@@ -573,7 +573,6 @@ def test_hair_sss_render_card_matches_cpu(cuda, tmp_path):
     is not reached: the hair ribbons turn the card's ulps into larger
     differences, chip_smoke.py HAIR_SMALL_SHARE); kernels B1 and B2
     launched on the card."""
-    from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.driver import load
     from statmc_tpu_torch.testscenes import hair_sss_scene_text
 
@@ -583,13 +582,13 @@ def test_hair_sss_render_card_matches_cpu(cuda, tmp_path):
                                         filterradius=2, curves=128))
     runs = {}
     for dev in ("cuda", "cpu"):
-        b1, b2 = TF.intersect_tiles.launches, FC.run_filter.launches
+        b1, b2 = spans.counted("kernel.B1"), spans.counted("kernel.B2")
         r = load(str(path), device=dev)
         r.progress = False
         runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
         if dev == "cuda":
-            assert TF.intersect_tiles.launches > b1
-            assert FC.run_filter.launches > b2
+            assert spans.counted("kernel.B1") > b1
+            assert spans.counted("kernel.B2") > b2
     assert runs["cuda"][0] == runs["cpu"][0]
     gpu, cpu = runs["cuda"][1], runs["cpu"][1]
     assert gpu.keys() == cpu.keys()
@@ -662,7 +661,6 @@ def test_volpath_render_card_matches_cpu(cuda, tmp_path):
     Fourier spheres and boxes) at 32x24 on the card against the CPU:
     equal sample counts, ray totals within 0.1%, every buffer within rtol
     1e-4 on 98% of its pixels; kernels B1 and B2 launched on the card."""
-    from statmc_tpu_torch.denoise import filter_cuda as FC
     from statmc_tpu_torch.driver import load
     from statmc_tpu_torch.testscenes import volpath_scene_text
 
@@ -672,14 +670,14 @@ def test_volpath_render_card_matches_cpu(cuda, tmp_path):
                                        grid=16, filterradius=2))
     runs = {}
     for dev in ("cuda", "cpu"):
-        b1, b2 = TF.intersect_tiles.launches, FC.run_filter.launches
+        b1, b2 = spans.counted("kernel.B1"), spans.counted("kernel.B2")
         r = load(str(path), device=dev)
         r.progress = False
         assert r.s.icfg.volumetric and r.s.scene.fourier is not None
         runs[dev] = (r.render(verbose=False)[-1]["rays_total"], r.buffers())
         if dev == "cuda":
-            assert TF.intersect_tiles.launches > b1
-            assert FC.run_filter.launches > b2
+            assert spans.counted("kernel.B1") > b1
+            assert spans.counted("kernel.B2") > b2
     assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-3 * runs["cpu"][0]
     gpu, cpu = runs["cuda"][1], runs["cpu"][1]
     assert gpu.keys() == cpu.keys()
@@ -772,12 +770,9 @@ def _card_against_cpu(path, share=0.98):
 
 
 def _launch_counts(reset=False):
-    fns = {"B1": TF.intersect_tiles, "B2": FC.run_filter, "B3": TT.cull,
-           "B4": TT.walk}
-    if reset:
-        for fn in fns.values():
-            fn.launches = 0
-    return {k: fn.launches for k, fn in fns.items()}
+    from statmc_tpu_torch.__main__ import launches
+
+    return launches(reset)
 
 
 @pytest.mark.gpu

@@ -96,6 +96,8 @@ def test_mesh_2x2_pipeline_matches_jax(tmp_path, capfd, width, height,
         assert (it["log"]["rays_total"] > float(rt.ray_total) if pad
                 else it["log"]["rays_total"] == float(rt.ray_total))
         assert set(it["log"]["comm_s"]) >= {"spp_merge", "film_sums"}
+        assert it["log"]["comm_bytes"]["spp_merge"] > 0
+        assert it["log"]["comm_bytes"]["film_sums"] > 0
         if got["denoise"] == "slabs":
             # The row slabs with their halos filter as the whole image
             # does on the mesh's gathered states.
