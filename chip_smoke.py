@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (statmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --kernels  # phases 1-4a, 7b and 11 only: the
+    python3 chip_smoke.py --kernels  # phases 1-4b, 7b and 11 only: the
                                      # kernels against their plain
                                      # versions, no result lines
-    python3 chip_smoke.py --mesh     # phases 1-4a and 8l only: B1, B2,
-                                     # B2 on halo slabs and the mesh
+    python3 chip_smoke.py --mesh     # phases 1-4b and 8l only: B1, B2,
+                                     # B2 on halo slabs, R1 and the mesh
                                      # phases, no result lines
-    python3 chip_smoke.py --albedo   # phases 1-4a and 8m only: the
+    python3 chip_smoke.py --albedo   # phases 1-4b and 8m only: the
                                      # albedo-LUT precompute and
                                      # bsdftest (flags combine: each
                                      # group they name)
@@ -41,6 +41,10 @@ and the final line is not printed:
    and by zeros with valid = 0 past the image's edges: the kernel
    against its plain version on every slab, and the slabs' centre rows
    equal to the whole image's output bit for bit;
+4b. kernel R1 (threefry draw sites) against its plain version at 921,600
+   lanes: a 2D draw site and pixel_keys bit for bit, one launch a call,
+   CUDA-event medians of both beside R1's bound, and the device kernels
+   one call of each launches;
 5. the staircase main path: ``load(scene).render(iterations=2)`` on the
    staircase proxy at 1280x720, maxdepth 8, filter radius 20, albedo +
    normal G-buffers, 4 spp, with B1's and B2's launch counts (B2's by
@@ -330,9 +334,19 @@ B3_OPS = 20  # (ray, subgroup box) slab test
 # 8 products, 14 min/max and 2 merges; then the product and 2 compares.
 B3_REJECT_OPS = 3 * (4 + 8 + 14 + 2) + 3
 B4_OPS = B1_OPS  # (ray, triangle): the same core as B1
+# R1 (csrc/threefry.cu): 32-bit integer operations of one Threefry-2x32 of
+# 20 rounds (the key schedule's 2 xors and 2 first adds; an add, a rotate
+# and an xor a round; 3 adds a key injection, 5 of them) and of turning a
+# hash into a uniform (xor, shift, or, subtraction).  Peak: 64 such
+# operations a clock an SM (the CUDA C++ Programming Guide's throughput
+# table, compute capability 9.0) x 132 SMs x 1.98 GHz.
+R1_HASH_OPS, R1_UNIFORM_OPS = 4 + 20 * 3 + 5 * 3, 4
+PEAK_INT_OPS = 64 * 132 * 1.98e9
+R1_REPS = 20  # R1 launches profiled for its device time a launch
 # The kernels' names in a profiler trace.
 KERNEL_NAMES = {"B1": "fused_intersect", "B2": "stat_filter",
-                "B3": "twolevel_cull", "B4": "twolevel_walk"}
+                "B3": "twolevel_cull", "B4": "twolevel_walk",
+                "R1": "threefry_kernel"}
 SUBSET = 64  # blocks of 512 rays on which B4 meets its plain version
 # The small reference render (phase 6) and the share of its pixels that
 # must agree between the card and the CPU in every buffer (0.9961 at
@@ -828,7 +842,8 @@ def phase_main_path(card):
         logs = r.render(iterations=2, verbose=False)
         torch.cuda.synchronize()
         launches = {"B1": spans.counted("kernel.B1"),
-                    "B2": spans.counted("kernel.B2")}
+                    "B2": spans.counted("kernel.B2"),
+                    "R1": spans.counted("kernel.R1")}
         forms = FC.form_launches()
         filter_calls = _capture_filter_inputs(r)
         film = r.film_mean.cpu().numpy()
@@ -986,7 +1001,8 @@ def phase_staircase_profile(card, r, render_s):
                              " trace or B2 not in the denoise pass's")
     whole = {"kernels": sum(n for _, n in groups.values()),
              "device_ms": total, "busy": total / 1e3 / render_s}
-    return {"B1": groups["B1"][0], "B2": den["B2"][0]}, whole
+    return ({"B1": groups["B1"][0], "B2": den["B2"][0],
+             "R1": groups["R1"][0]}, whole)
 
 
 def phase_small_reference(card, name, text, share=SMALL_SHARE,
@@ -1912,7 +1928,8 @@ def phase_checkpoint(card):
         spans.reset("kernel.")
         b.render(iterations=2, verbose=False, start_iteration=nxt)
         launches = {"B1": spans.counted("kernel.B1"),
-                    "B2": spans.counted("kernel.B2")}
+                    "B2": spans.counted("kernel.B2"),
+                    "R1": spans.counted("kernel.R1")}
     pairs = [("film", b.film_mean, full.film_mean),
              ("film-f", b.film_f, full.film_f),
              ("ray_total", b.ray_total, full.ray_total)]
@@ -1958,8 +1975,8 @@ def phase_cli(card):
     1e-5 of the same render denoised in memory (the render-for-ours block
     with denoiseimage on: ACRR and SMIS are off, so the filter changes
     no draw).  The launch counts are each subprocess's own, from its
-    ``Kernel launches:`` line on standard error: B1 must have run in
-    the render, B2 in the --denoise run."""
+    ``Kernel launches:`` line on standard error: B1 and R1 must have run
+    in the render, B2 in the --denoise run."""
     import numpy as np
 
     from statmc_tpu_torch.driver import load
@@ -1997,7 +2014,8 @@ def phase_cli(card):
                 raise AssertionError(f"CLI {name}: no launch counts\n"
                                      f"{proc.stderr[-2000:]}")
             out[name] = json.loads(counts[0])
-        if out["render"]["B1"] <= 0 or out["denoise"]["B2"] <= 0:
+        if (out["render"]["B1"] <= 0 or out["render"]["R1"] <= 0
+                or out["denoise"]["B2"] <= 0):
             raise AssertionError(f"CLI launch counts {out}")
         files = sorted(os.listdir(outdir))
         by_spp = {spp: sorted(f[len(f"{stem}-{spp}-"):-4] for f in files
@@ -3581,6 +3599,90 @@ def _halo_slab(x, lo, hi):
     return torch.cat(parts).contiguous()
 
 
+def phase_r1(card):
+    """Kernel R1 against its plain version (core/rng.py:site_hash_plain,
+    the int64 emulation the port ran before R1) at P = 921,600 lanes (one
+    1280x720 wavefront): a 2D draw site (uniform_2d, the bounce index an
+    int32 [P] as trace_wavefront passes it) and pixel_keys (a [P] sample
+    index), bit for bit, one launch a call.  Times: R1's device time a
+    launch (torch.profiler, over R1_REPS calls), beside its bound (integer
+    operations over PEAK_INT_OPS, bytes over PEAK_BYTES); a call's time
+    from CUDA events around it, median of 10 (for R1 the wrapper's host
+    time: the card finishes the kernel sooner), and the plain version's;
+    and the device kernels one call of each launches: the ops a draw site
+    launches on the card before and after R1."""
+    import torch
+
+    from statmc_tpu_torch import spans
+    from statmc_tpu_torch.core import rng as crng
+
+    P = WIDTH * HEIGHT
+    g = torch.Generator(device="cuda").manual_seed(17)
+    keys = torch.randint(0, 1 << 32, (P, 2), generator=g, device="cuda")
+    keys[:4] = torch.tensor([[0, 0], [0xFFFFFFFF, 0xFFFFFFFF],
+                             [0, 0xFFFFFFFF], [0xFFFFFFFF, 0]])
+    sis = torch.randint(0, MAXDEPTH + 1, (P,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pid = torch.arange(P, dtype=torch.int32, device="cuda")
+    sample = torch.randint(0, 16, (P,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    base = crng.base_key(2**31 + 5, device="cuda")
+    sites = {
+        # name: (kernel, plain, hashes a lane, counters a lane, bytes)
+        "uniform_2d": (lambda: crng.uniform_2d(keys, sis, crng.SLOT_BSDF),
+                       lambda: crng.site_hash_plain(
+                           keys, (sis, crng.SLOT_BSDF), (2,)),
+                       4, 2, P * (16 + 4 + 8)),
+        "pixel_keys": (lambda: crng.pixel_keys(base, pid, sample),
+                       lambda: crng.site_hash_plain(base, (sample, pid)),
+                       2, 0, P * (4 + 4 + 16) + 16),
+    }
+    out = {}
+    for name, (kernel, plain, hashes, ctrs, nbytes) in sites.items():
+        before = spans.counted("kernel.R1")
+        got = kernel()
+        if spans.counted("kernel.R1") != before + 1:
+            raise AssertionError(f"R1 {name}: not one launch a call")
+        want = plain()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"R1 {name}: differs from the plain "
+                                 f"version on {int((got != want).sum())} "
+                                 "words")
+        call_ms = _median_ms(kernel)
+        plain_ms = _median_ms(plain, warmup=1, reps=5)
+        _, groups, _, _, _ = _profile(
+            lambda: [kernel() for _ in range(R1_REPS)], host=False)
+        if groups["R1"][1] != R1_REPS:
+            raise AssertionError(f"R1 {name}: {groups['R1'][1]} kernels in "
+                                 f"the trace of {R1_REPS} calls")
+        ms = groups["R1"][0] / R1_REPS
+        ops = P * (hashes * R1_HASH_OPS + ctrs * R1_UNIFORM_OPS)
+        t_ops, t_bytes = ops / PEAK_INT_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = max((t_ops, "integer operations"),
+                                 (t_bytes, "bytes"))
+        kernels = {}
+        for side, fn in (("plain", plain), ("R1", kernel)):
+            _, groups, launched, _, _ = _profile(fn)
+            kernels[side] = (sum(n for _, n in groups.values()), launched)
+        print(f"R1 {name}: {P} lanes bit-identical to the plain version; "
+              f"kernel {ms:.4f} ms on the device, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {bound_ms / ms:.3f} of the kernel's time; "
+              f"{ops / P:.0f} integer operations and {nbytes / P:.1f} B a "
+              f"lane: {t_ops:.4f} ms by operations, {t_bytes:.4f} ms by "
+              f"bytes); a call {call_ms:.4f} ms, the plain version's "
+              f"{plain_ms:.3f} ms (CUDA events); device kernels (runtime "
+              f"launches) a call: plain {kernels['plain'][0]} "
+              f"({kernels['plain'][1]}), R1 {kernels['R1'][0]} "
+              f"({kernels['R1'][1]}) [{card}]", flush=True)
+        out[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         kernels_plain=kernels["plain"][0],
+                         kernels_r1=kernels["R1"][0])
+    return out
+
+
 def phase_b2_halo(rng, card):
     """Kernel B2 on the mesh's halo slabs: phase_b2's 1280x720, r = 20
     inputs cut into 2 and 4 row slabs, each extended by r rows of its
@@ -4006,8 +4108,9 @@ def phase_albedo_luts(card):
     rtol 1e-4 against ALBEDO_SHARE, reported.  Then bsdftest's five
     materials on the card.  A compare error over 0.05 outside
     ALBEDO_GRID_MISSES, a failed round trip, a table not finite, a card
-    texel more than ALBEDO_ATOL off the CPU's, a spread >= 0.05 or a
-    launch of B1-B4 (none is on this path) raises.  Returns the workflow
+    texel more than ALBEDO_ATOL off the CPU's, a spread >= 0.05, a
+    launch of B1-B4 (none is on this path) or none of R1 (the draws)
+    raises.  Returns the workflow
     line's "albedo_lut" entry."""
     import torch
 
@@ -4075,8 +4178,10 @@ def phase_albedo_luts(card):
         if spread >= bsdftest.SPREAD_LIMIT:
             raise AssertionError(f"bsdftest {name}: spread {spread}")
     launches = _read_counts()
-    if any(launches.values()):
-        raise AssertionError(f"albedo LUTs: a kernel launched {launches}")
+    if (any(launches[k] for k in ("B1", "B2", "B3", "B4"))
+            or not launches["R1"]):
+        raise AssertionError(f"albedo LUTs: B1-B4 launched or R1 did not: "
+                             f"{launches}")
     fams = out["families"].values()
     texels = sum(v["texels"] for v in fams)
     seconds = sum(v["seconds"] for v in fams)
@@ -4091,7 +4196,7 @@ def phase_albedo_luts(card):
 
 
 def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
-    """only: the groups of phases to run after phase 4a ("kernels",
+    """only: the groups of phases to run after phase 4b ("kernels",
     "mesh", "albedo"); all phases when empty."""
     import torch
 
@@ -4130,6 +4235,7 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
     # later phases' random inputs stay those of earlier runs.
     b2h = phase("B2 halo slabs", phase_b2_halo, np.random.default_rng(SEED),
                 card)
+    r1 = phase("R1", phase_r1, card)
     if only:
         if "kernels" in only:
             phase("B2 backward", phase_b2_backward, card)
@@ -4328,6 +4434,23 @@ def main(only: frozenset = frozenset(), other_tree: str | None = None) -> int:
                   **{f"mesh_{m}_launches": [c[b] for c in mesh["launches"][m]]
                      for m in ("2x2_4cards", "1x4_4cards")
                      if m in mesh["launches"]}})
+    # R1: phase R1's 2D draw site and pixel_keys at 921,600 lanes; launches
+    # and device ms over the staircase main path's render and profile.
+    kernels.append({
+        "name": "R1 threefry", "route": "cuda",
+        "source": "statmc_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: statmc_tpu/core/rng.py's draw sites, which XLA "
+                    "fuses", "launches": launches["R1"],
+        "main_path_ms": path_ms["R1"], "max_abs_err": 0.0,
+        "ms": r1["uniform_2d"]["ms"], "plain_ms": r1["uniform_2d"]["plain_ms"],
+        "bound_ms": r1["uniform_2d"]["bound_ms"],
+        "bound_by": r1["uniform_2d"]["bound_by"], "library_ms": None,
+        "call_ms": r1["uniform_2d"]["call_ms"],
+        "pixel_keys_ms": r1["pixel_keys"]["ms"],
+        "pixel_keys_plain_ms": r1["pixel_keys"]["plain_ms"],
+        "pixel_keys_bound_ms": r1["pixel_keys"]["bound_ms"],
+        "site_kernels_plain": r1["uniform_2d"]["kernels_plain"],
+        "site_kernels_r1": r1["uniform_2d"]["kernels_r1"]})
     # B2's other forms: launches by form as read back from the main path's
     # two runs of this script (the staircase render, all f32, and its
     # denoise through Renderer(denoiser=StatDenoiser(range_bf16=True)); no

@@ -154,12 +154,13 @@ def run(args, r, mesh=None) -> int:
 
 def launches(reset=False):
     """Each kernel's launch count ({"B1": n, ...}, the counters kernel.B1
-    .. kernel.B4 of spans.py), set to 0 if asked."""
+    .. kernel.B4 and kernel.R1 of spans.py), set to 0 if asked."""
     from . import spans
 
     if reset:
         spans.reset("kernel.")
-    return {k: spans.counted("kernel." + k) for k in ("B1", "B2", "B3", "B4")}
+    return {k: spans.counted("kernel." + k)
+            for k in ("B1", "B2", "B3", "B4", "R1")}
 
 
 def _report_launches(r, mesh=None):

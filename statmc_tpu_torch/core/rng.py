@@ -15,15 +15,22 @@ scrambled Sobol' point; MODE_LOCKSTEP reads a table of the reference's
 serial PCG32 draws (core/lockstep.py).  Every mode is bit-exact with
 the JAX package's.
 
-uint32 arithmetic is emulated in int64 and masked to 32 bits, so keys
-are int64 tensors [..., 2] holding uint32 values.  Every ``draw_1d`` and
-``draw_2d`` call runs in the span ``rng.draw`` (spans.py).
+Keys are int64 tensors [..., 2] holding uint32 values.  The hashing of
+every random-mode draw site, pixel key, fold_in and uniform is one call
+of ``site_hash``: on CUDA tensors one launch of kernel R1
+(csrc/threefry.cu, native uint32 arithmetic; counter ``kernel.R1``), on
+CPU tensors its plain version ``site_hash_plain``, which emulates uint32
+arithmetic in int64 masked to 32 bits.  Every ``draw_1d`` and ``draw_2d``
+call runs in the span ``rng.draw`` (spans.py).
 """
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
-from .. import spans
+from .. import cuda_build, spans
 from . import math as cm
 
 # Draw-site slot numbers (statmc_tpu/core/rng.py).
@@ -103,16 +110,22 @@ def threefry2x32(k1, k2, x1, x2):
     return a, b
 
 
-def fold_in(key, data):
-    """jax.random.fold_in: key [..., 2], data int tensor broadcastable to
-    key[..., 0] (or a Python int)."""
-    a, b = threefry2x32(key[..., 0], key[..., 1], 0, data)
-    return torch.stack([a, b], dim=-1)
-
-
-def uniform(key, shape):
-    """jax.random.uniform(k, shape) for every key k of `key` [..., 2]:
-    returns key.shape[:-1] + shape in [0, 1)."""
+def site_hash_plain(key, words=(), shape=None):
+    """Kernel R1's plain version (csrc/threefry.cu): each of `words` (a
+    Python int or an int tensor broadcastable against key[..., 0]) folded
+    into the keys `key` [..., 2] in turn, as jax.random.fold_in: key =
+    threefry(key, (0, word)).  With shape None, the folded keys [..., 2];
+    else jax.random.uniform(k, shape) of each folded key k: the row-major
+    element index hashed as the counter (0, i), the two output words
+    xored, the top 23 bits the mantissa of a float in [1, 2), less 1,
+    batch + shape."""
+    for w in words:
+        if torch.is_tensor(w):
+            w = w.to(torch.int64)
+        a, b = threefry2x32(key[..., 0], key[..., 1], 0, w)
+        key = torch.stack([a, b], dim=-1)
+    if shape is None:
+        return key
     n = 1
     for s in shape:
         n *= int(s)
@@ -123,6 +136,132 @@ def uniform(key, shape):
                                                  + tuple(shape))
 
 
+class _R1Word(ctypes.Structure):
+    """struct Word of csrc/threefry.cu."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("div", ctypes.c_longlong),
+                ("mod", ctypes.c_longlong), ("is64", ctypes.c_int),
+                ("value", ctypes.c_uint)]
+
+
+class _R1Args(ctypes.Structure):
+    """struct Args of csrc/threefry.cu."""
+    _fields_ = [("key", ctypes.c_void_p), ("key_div", ctypes.c_longlong),
+                ("key_mod", ctypes.c_longlong), ("w", _R1Word * 2),
+                ("n_words", ctypes.c_int), ("n_lanes", ctypes.c_longlong),
+                ("n_ctr", ctypes.c_longlong), ("key_out", ctypes.c_void_p),
+                ("u_out", ctypes.c_void_p)]
+
+
+def _broadcast(shapes):
+    """torch.broadcast_shapes of a few shapes, at a fraction of its host
+    time."""
+    nd = max(len(s) for s in shapes)
+    out = [1] * nd
+    for s in shapes:
+        for i, n in enumerate(s, nd - len(s)):
+            if n != 1:
+                if out[i] != 1 and out[i] != n:
+                    raise ValueError(f"site_hash: shapes {shapes} do not "
+                                     "broadcast")
+                out[i] = n
+    return tuple(out)
+
+
+def _rows(x, batch, inner: int, lanes: int):
+    """(x', div, mod): lane l of the row-major `batch` (`lanes` in all)
+    reads row (l // div) % mod of x' (rows of `inner` elements, contiguous
+    from x'.data_ptr()), where x [..., inner] (or [...] for inner 1)
+    broadcasts to `batch`.  Broadcast dimensions are indexed, not copied,
+    as long as x's other dimensions form one contiguous block; else x' is
+    the broadcast x made contiguous (div 1, mod the lanes)."""
+    if (x.shape[:-1] if inner > 1 else x.shape) == batch:
+        if x.is_contiguous():
+            return x, 1, lanes
+    x = x.expand(*batch, inner) if inner > 1 else x.expand(batch)
+    live = [i for i, n in enumerate(batch) if n != 1 and x.stride(i) != 0]
+    if not live:
+        return x, 1, 1
+    ok = inner == 1 or x.stride(-1) == 1
+    step = inner
+    for i in range(live[-1], live[0] - 1, -1):
+        if batch[i] != 1:
+            ok = ok and x.stride(i) == step
+            step *= batch[i]
+    if not ok:
+        return x.contiguous(), 1, lanes
+    return x, math.prod(batch[live[-1] + 1:]), step // inner
+
+
+def site_hash(key, words=(), shape=None):
+    """Kernel R1 wrapper: same contract as `site_hash_plain`, which CPU
+    tensors take; CUDA tensors launch the kernel (one launch a call, on
+    the current stream), and the counter kernel.R1 (spans.py) counts the
+    launches.  A tensor word is int32 or int64 on the key's device (other
+    integer types are converted; a 0-d tensor elsewhere is read as an
+    int); broadcast keys and words are read in place, not expanded."""
+    if not key.is_cuda:
+        return site_hash_plain(key, words, shape)
+    if len(words) > 2:
+        raise ValueError(f"site_hash: at most 2 fold words, got {len(words)}")
+    dev = key.device
+    if key.dtype != torch.int64:
+        key = key.to(torch.int64)
+    args = _R1Args(n_words=len(words))
+    shapes = [key.shape[:-1]]
+    tensors = [None] * len(words)
+    for i, w in enumerate(words):
+        if torch.is_tensor(w) and w.device != dev and w.dim() == 0:
+            w = int(w)
+        if not torch.is_tensor(w):
+            args.w[i].value = int(w) & _MASK
+            continue
+        if w.device != dev:
+            raise ValueError(f"site_hash: word {i} on {w.device}, the keys "
+                             f"on {dev}")
+        if w.dtype != torch.int32 and w.dtype != torch.int64:
+            w = w.to(torch.int64)
+        tensors[i] = w
+        shapes.append(w.shape)
+    batch = _broadcast(shapes)
+    lanes = math.prod(batch)
+    n = None if shape is None else math.prod(shape)
+    out = torch.empty((*batch, 2 if n is None else n),
+                      dtype=torch.int64 if n is None else torch.float32,
+                      device=dev)
+    if out.numel() > 0:
+        key, args.key_div, args.key_mod = _rows(key, batch, 2, lanes)
+        args.key = key.data_ptr()
+        for i, w in enumerate(tensors):
+            if w is not None:  # kept in `tensors` until the launch
+                tensors[i], args.w[i].div, args.w[i].mod = _rows(
+                    w, batch, 1, lanes)
+                args.w[i].ptr = tensors[i].data_ptr()
+                args.w[i].is64 = tensors[i].dtype == torch.int64
+        args.n_lanes = lanes
+        if n is None:
+            args.key_out = out.data_ptr()
+        else:
+            args.n_ctr = n
+            args.u_out = out.data_ptr()
+        rc = cuda_build.library().statmc_threefry(
+            ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check(rc, "statmc_threefry")
+        spans.count("kernel.R1", 1)
+    return out if n is None else out.reshape(*batch, *shape)
+
+
+def fold_in(key, data):
+    """jax.random.fold_in: key [..., 2], data int tensor broadcastable to
+    key[..., 0] (or a Python int)."""
+    return site_hash(key, (data,))
+
+
+def uniform(key, shape):
+    """jax.random.uniform(k, shape) for every key k of `key` [..., 2]:
+    returns key.shape[:-1] + shape in [0, 1)."""
+    return site_hash(key, (), tuple(shape))
+
+
 def base_key(base_seed: int, device=None):
     """Root key: jax.random.PRNGKey(uint32(seed)) = (0, seed)."""
     return torch.tensor([0, int(base_seed) & _MASK], dtype=torch.int64,
@@ -130,31 +269,26 @@ def base_key(base_seed: int, device=None):
 
 
 def pixel_keys(key, pixel_ids, sample_index):
-    """Per-pixel keys for one sample index (scalar or [P])."""
-    pid = pixel_ids.to(torch.int64)
-    if not torch.is_tensor(sample_index) or sample_index.dim() == 0:
-        k = fold_in(key, int(sample_index))
-        return fold_in(k.expand(pid.shape[0], 2), pid)
-    s = sample_index.to(torch.int64)
-    return fold_in(fold_in(key.expand(pid.shape[0], 2), s), pid)
+    """Per-pixel keys [P, 2] for one sample index (scalar or [P]) under
+    the root key `key` [2]: fold_in(fold_in(key, sample), pixel)."""
+    return site_hash(key, (sample_index, pixel_ids))
 
 
 def _site_keys(keys, bounce, slot: int):
     """Fold (bounce, slot) into per-lane keys; bounce scalar or [P]."""
-    b = bounce.to(torch.int64) if torch.is_tensor(bounce) else int(bounce)
-    return fold_in(fold_in(keys, b), slot)
+    return site_hash(keys, (bounce, slot))
 
 
 def uniform_1d(keys, bounce, slot: int):
     """One uniform in [0,1) per lane key (keys [P, 2]): the random-mode
     draw site draw_1d of statmc_tpu/core/rng.py."""
-    return uniform(_site_keys(keys, bounce, slot), ())
+    return site_hash(keys, (bounce, slot), ())
 
 
 def uniform_2d(keys, bounce, slot: int):
     """[P, 2] uniforms (counters 0 and 1 under each lane's site key): the
     random-mode draw site draw_2d of statmc_tpu/core/rng.py."""
-    return uniform(_site_keys(keys, bounce, slot), (2,))
+    return site_hash(keys, (bounce, slot), (2,))
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +332,7 @@ def _unit(bits):
 
 def pixel_scramble(key, pixel_ids):
     """Per-pixel scramble words [P, 2], independent of the sample index."""
-    return fold_in(key.expand(pixel_ids.shape[0], 2),
-                   pixel_ids.to(torch.int64))
+    return fold_in(key, pixel_ids)
 
 
 def ld_camera_jitter(keys, sample_index):

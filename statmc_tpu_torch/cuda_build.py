@@ -45,6 +45,8 @@ _SIGNATURES = {
     # fsub, t_out, id_out, stream
     "statmc_twolevel_walk": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _i, _i, _i,
                              _vp, _vp, _vp],
+    # args (struct Args of threefry.cu, core/rng.py:_R1Args), stream
+    "statmc_threefry": [_vp, _vp],
     # out[2] = {resident blocks per SM, registers per thread}
     "statmc_fused_intersect_occupancy": [ctypes.POINTER(ctypes.c_int)],
     "statmc_twolevel_walk_occupancy": [ctypes.POINTER(ctypes.c_int)],

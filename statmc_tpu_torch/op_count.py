@@ -1,6 +1,7 @@
 """Eager ops per bounce step, counted on the CPU: what the host loop
-launches on the card, one kernel an op, with the intersectors' plain
-versions counted as the one kernel each stands for.
+launches on the card, one kernel an op, with the intersectors' and
+threefry's (R1, core/rng.py:site_hash_plain) plain versions counted as
+the one kernel each stands for.
 
     python -m statmc_tpu_torch.op_count
 
@@ -52,7 +53,7 @@ from .testscenes import (BICONVEX, ao_scene_text, bdpt_scene_text,
                          mlt_scene_text, realistic_scene_text, scene_text,
                          sppm_scene_text, volpath_scene_text)
 
-_PLAIN = "count.plain"  # the intersectors' plain versions: one kernel
+_PLAIN = "count.plain"  # the kernels' plain versions: one kernel each
 _SITES = {"count.draw": ((rng, "uniform_1d"), (rng, "uniform_2d"),
                          (volume, "_iteration_uniforms")),
           "count.intersect": ((intersect, "intersect_scene"),
@@ -82,7 +83,7 @@ def count(text: str):
     """(bounce steps, ops a step, {range: (calls, ops a call)}) of one
     iteration of the scene `text` on the CPU."""
     patches = [(fused, "intersect_plain"), (twolevel, "cull_plain"),
-               (twolevel, "walk_plain")]
+               (twolevel, "walk_plain"), (rng, "site_hash_plain")]
     old = [(m, n, getattr(m, n)) for m, n in patches]
     for m, n in patches:
         setattr(m, n, spans.spanned(_PLAIN)(getattr(m, n)))
@@ -119,8 +120,14 @@ def count(text: str):
         if not e.name.startswith("aten::"):
             if e.name.startswith(_RANGES):
                 calls[e.name] += 1
-            if e.name == _PLAIN:
+            if e.name == _PLAIN:  # one kernel, in the range around it
                 total += 1
+                parent = e.cpu_parent
+                while (parent is not None
+                       and not parent.name.startswith(_RANGES)):
+                    parent = parent.cpu_parent
+                if parent is not None:
+                    ops[parent.name] += 1
             continue
         parent = e.cpu_parent
         if parent is not None and parent.name.startswith("aten::"):

@@ -16,9 +16,10 @@ _is_profiler_enabled``); while a profiler records, each span also opens a
 in ``--profile``'s chrome trace.  With tracing off, ``span()`` returns
 one shared context that records nothing, and ``count()`` of a device
 tensor launches nothing; ``count()`` of a host int always counts (the
-kernels' launch counters, ``kernel.B1`` .. ``kernel.B4``, which the
-CLI's ``Kernel launches:`` line reads).  A call site whose count would
-itself launch work (a reduction) asks ``enabled()`` first.
+kernels' launch counters, ``kernel.B1`` .. ``kernel.B4`` and
+``kernel.R1``, which the CLI's ``Kernel launches:`` line reads).  A call
+site whose count would itself launch work (a reduction) asks
+``enabled()`` first.
 
 ``snapshot()`` returns what was recorded (reading each device counter
 once); ``reset()`` clears it.  The recorder serves one thread, the

@@ -995,3 +995,139 @@ def test_precompute_tool_and_bsdftest_on_the_card(cuda, tmp_path, capsys):
     assert "testlut: grid round trip OK" in capsys.readouterr().out
     for name in bsdftest.MATERIALS:
         assert bsdftest.main([name]) == 0
+
+
+_R1_EDGE_KEYS = ((0, 0), (0xFFFFFFFF, 0xFFFFFFFF), (0, 0xFFFFFFFF),
+                 (0xFFFFFFFF, 0))
+
+
+def _r1_inputs(index, P):
+    """Keys [P, 2] of uint32 words (the first lanes' 0 and 0xFFFFFFFF),
+    the index (0xFFFFFFFF as a Python int, or int32 / int64 [P] holding
+    0, -1 and the type's largest value among random ones) and pixel ids
+    [P] int32, on the CPU."""
+    rng = np.random.default_rng(P)
+    keys = rng.integers(0, 1 << 32, size=(P, 2), dtype=np.int64)
+    n = min(P, len(_R1_EDGE_KEYS))
+    keys[:n] = _R1_EDGE_KEYS[:n]
+    idx = 0xFFFFFFFF
+    if index != "scalar":
+        dt = np.int32 if index == "int32" else np.int64
+        top = int(np.iinfo(dt).max)
+        x = rng.integers(-(1 << 31), 1 << 31, size=P, dtype=np.int64)
+        x[:min(P, 3)] = (0, -1, top)[:min(P, 3)]
+        idx = torch.as_tensor(x.astype(dt))
+    pid = torch.as_tensor(rng.integers(0, 1 << 31, size=P, dtype=np.int64)
+                          .astype(np.int32))
+    return torch.as_tensor(keys), idx, pid
+
+
+def _r1_call(entry, index, keys, idx, pid):
+    from statmc_tpu_torch.core import rng as crng
+
+    if entry == "uniform_1d":
+        return crng.uniform_1d(keys, idx, crng.SLOT_RR)
+    if entry == "uniform_2d":
+        return crng.uniform_2d(keys, idx, crng.SLOT_BSDF)
+    if entry == "pixel_keys":
+        return crng.pixel_keys(keys[min(1, keys.shape[0] - 1)], pid, idx)
+    if entry == "fold_in":
+        return crng.fold_in(keys, idx)
+    # uniform(key, (k,)): one key's k = P counters (spread over threads),
+    # or 5 counters of every key.
+    if index == "scalar":
+        return crng.uniform(keys[min(1, keys.shape[0] - 1)],
+                            (keys.shape[0],))
+    return crng.uniform(keys, (5,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 1000, 921600])
+@pytest.mark.parametrize("index", ["scalar", "int32", "int64"])
+@pytest.mark.parametrize("entry", ["uniform_1d", "uniform_2d", "pixel_keys",
+                                   "fold_in", "uniform"])
+def test_r1_kernel_matches_plain(cuda, entry, index, P):
+    """Kernel R1 against the plain int64 version on the CPU, bit for bit
+    (keys as int64, uniforms as their float32 bits), one launch a call."""
+    cpu = _r1_inputs(index, P)
+    card = [x.to(cuda) if torch.is_tensor(x) else x for x in cpu]
+    before = spans.counted("kernel.R1")
+    got = _r1_call(entry, index, *card)
+    assert spans.counted("kernel.R1") == before + 1
+    want = _r1_call(entry, index, *cpu)
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_r1_broadcast_operands_match_plain(cuda):
+    """The callers' other shapes through R1, against the plain version:
+    volume.py's [L, C] fold (keys over a new axis, a row of iteration
+    words), keys at an offset and with their words apart, strided words,
+    a 0-d word on the card and one on the CPU, uint8 words, and a shaped
+    uniform of per-lane keys (albedo_lut.py)."""
+    from statmc_tpu_torch.core import rng as crng
+
+    keys, idx, pid = _r1_inputs("int64", 1000)
+    its = torch.arange(3, 11)
+    cases = [
+        lambda k, i, p, d: crng.fold_in(k[:, None, :], its.to(d)[None, :]),
+        lambda k, i, p, d: crng.fold_in(k[7:507], p[:500]),
+        lambda k, i, p, d: crng.uniform_2d(k.t().contiguous().t(), i, 4),
+        lambda k, i, p, d: crng.uniform_1d(k[:500], i[::2], 3),
+        lambda k, i, p, d: crng.uniform_2d(k, torch.tensor(6, device=d), 2),
+        lambda k, i, p, d: crng.uniform_2d(k, torch.tensor(6), 2),
+        lambda k, i, p, d: crng.fold_in(k, p.to(torch.uint8)),
+        lambda k, i, p, d: crng.uniform(crng.fold_in(k[:64], 1), (7, 2)),
+    ]
+    for n, case in enumerate(cases):
+        got = case(*(x.to(cuda) for x in (keys, idx, pid)), cuda).cpu()
+        want = case(keys, idx, pid, "cpu")
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert got.shape == want.shape and torch.equal(got, want), n
+
+
+@pytest.mark.gpu
+def test_r1_launches_are_the_draws_and_pixel_keys(cuda, tmp_path,
+                                                  monkeypatch):
+    """A random-mode render on the card: kernel.R1 counts one launch for
+    each rng.draw and each pixel_keys call, and the render matches the
+    CPU's sample counts and ray total."""
+    from statmc_tpu_torch.core import rng as crng
+    from statmc_tpu_torch.driver import load
+
+    path = _small_staircase(tmp_path, "random")
+    keys_calls = [0]
+    pixel_keys = crng.pixel_keys
+
+    def counted(*a, **k):
+        keys_calls[0] += 1
+        return pixel_keys(*a, **k)
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        r = load(path, device=dev)
+        r.progress = False
+        if dev == "cuda":
+            monkeypatch.setattr(crng, "pixel_keys", counted)
+            spans.disable()
+            spans.reset()
+            spans.enable()
+        try:
+            runs[dev] = (r.render(verbose=False)[-1]["rays_total"],
+                         r.buffers())
+            snap = spans.snapshot()
+        finally:
+            spans.disable()
+            spans.reset()
+    draws = sum(s["name"] == "rng.draw" for s in snap["spans"])
+    assert draws > 0 and keys_calls[0] > 0
+    assert snap["counters"]["kernel.R1"] == draws + keys_calls[0]
+    assert runs["cuda"][0] == runs["cpu"][0]
+    for k, v in runs["cpu"][1].items():
+        if k.endswith("-n"):
+            np.testing.assert_array_equal(runs["cuda"][1][k], v)
