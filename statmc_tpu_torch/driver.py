@@ -553,7 +553,7 @@ class Renderer:
             return x
         from .parallel import comm
 
-        with self.mesh.timed("gather"):
+        with self.mesh.timed("gather", self.mesh.px_ranks):
             parts = comm.all_gather(x, self.mesh.px_group)
         return torch.cat(parts, dim).narrow(dim, 0, self.P)
 
@@ -689,9 +689,11 @@ class Renderer:
 
             mesh, r = self.mesh, self.denoiser.radius
             hl = H // mesh.shape["px"]
+            peers = [mesh.rank] + [q for q in (mesh.prev, mesh.next)
+                                   if q is not None]
 
             def halo(x):
-                with mesh.timed("halo"):
+                with mesh.timed("halo", peers):
                     return comm.halo_rows(x, r, mesh.px_group, mesh.prev,
                                           mesh.next)
 

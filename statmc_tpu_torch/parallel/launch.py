@@ -3,7 +3,11 @@
 ``run_world(task, n_spp, n_px, args)`` runs ``task(mesh, *args)`` on
 n_spp * n_px ranks: one process a rank, started by torch.multiprocessing
 (start method spawn) and joined within `timeout`, or this process alone
-for a mesh of one.  The ranks meet through a ``file://`` store in a
+for a mesh of one.  ``start_world`` starts the same world with this
+process as rank 0 and returns a handle (``World``): the caller runs rank
+0's part of the program itself and closes the handle, as a program that
+reads rank 0's device in its own process (a profiler, peak memory, the
+clocks) needs.  The ranks meet through a ``file://`` store in a
 temporary directory, so worlds started side by side never share a port.
 A rank that raises fails the world: the others are stopped and the error
 is raised here.  Under torchrun the command line joins torchrun's world
@@ -14,7 +18,8 @@ module of its target: ``cli_task`` is ``python -m statmc_tpu_torch
 --mesh``'s rank; ``render_task``, ``chunk_task``, ``filter_task`` and
 ``combine_task`` drive the mesh's parts and write rank 0's gathered
 results to a file with torch.save, for a caller in another process (the
-tests, chip_smoke.py) to read back.
+tests, chip_smoke.py) to read back; ``jobs_task`` renders jobs back to
+back on one Renderer.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -79,13 +85,10 @@ def run_world(task, n_spp: int, n_px: int, args=(), devices=None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _rank_main(rank, n_spp, n_px, init_method, devices, task, args, timeout,
-               threads):
-    """One rank: join the world (torchrun's when init_method is None),
-    build the mesh, run the task, leave the world."""
-    n = n_spp * n_px
-    if threads:
-        torch.set_num_threads(threads)
+def _connect(rank, n, init_method, devices, timeout):
+    """Join the world as `rank` (torchrun's when init_method is None) on
+    this rank's device; returns the devices of every rank (None under
+    torchrun: cuda:LOCAL_RANK)."""
     if devices is None and init_method is not None:
         devices = [f"cuda:{i}" for i in range(n)]
     backend = shard.backend_for(devices) if devices else "nccl"
@@ -98,12 +101,171 @@ def _rank_main(rank, n_spp, n_px, init_method, devices, task, args, timeout,
         rank if init_method else None, backend,
         datetime.timedelta(seconds=timeout) if timeout
         else shard.DEFAULT_TIMEOUT)
+    return devices
+
+
+def _rank_main(rank, n_spp, n_px, init_method, devices, task, args, timeout,
+               threads):
+    """One rank: join the world (torchrun's when init_method is None),
+    build the mesh, run the task, leave the world."""
+    if threads:
+        torch.set_num_threads(threads)
+    devices = _connect(rank, n_spp * n_px, init_method, devices, timeout)
     try:
         task(shard.make_mesh(n_spp, n_px, devices), *args)
     finally:
         sys.stdout.flush()
         sys.stderr.flush()
         dist.destroy_process_group()
+
+
+def _spawned_rank(i, parent, *rank_args):
+    """Rank i + 1 of a start_world world; it ends itself if the process
+    that started it (rank 0) is gone, so that no rank outlives it."""
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    _rank_main(i + 1, *rank_args)
+
+
+class World:
+    """start_world's handle: rank 0's `mesh` in this process, the spawned
+    ranks 1 .. n-1, and `timeout` (s), the world's bound on a
+    collective.  A watchdog thread follows the spawned ranks: when one
+    fails, join kills the others and the watchdog aborts this rank's NCCL
+    collectives (gloo's fail by themselves once the peers are gone), so
+    that a collective pending here raises; close() then raises the rank's
+    error."""
+
+    def __init__(self, procs, tmp, timeout):
+        self.mesh = None
+        self.timeout = timeout
+        self._procs, self._tmp = procs, tmp
+        self._error = None
+        self._killed = False
+        self._stop = threading.Event()
+        self._watchdog = threading.Thread(target=self._watch, daemon=True)
+
+    def _watch(self):
+        while not self._stop.is_set():
+            try:
+                if self._procs.join(timeout=0.5):
+                    return  # every spawned rank ended well
+            except Exception as e:  # one failed; join killed the others
+                self._error = e
+                _abort()
+                return
+
+    def kill(self):
+        """Stop the spawned ranks now (the caller's own error path);
+        close() still follows."""
+        self._killed = True
+        for p in self._procs.processes:
+            if p.is_alive():
+                p.kill()
+
+    def close(self):
+        """Leave the world: this rank's process group is destroyed, the
+        spawned ranks are joined within the timeout (killed after it), and
+        the error of a rank that failed is raised."""
+        self._stop.set()
+        if self._watchdog.is_alive():
+            self._watchdog.join()
+        error = self._error
+        if error is None and not self._killed:
+            deadline = (None if self.timeout is None
+                        else time.monotonic() + self.timeout)
+            try:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                while not self._procs.join(timeout=0.5):
+                    if deadline is not None and time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"ranks still running {self.timeout} s after "
+                            "rank 0 left the world")
+            except Exception as e:
+                error = e
+        for p in self._procs.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        _abort()
+        if dist.is_initialized():
+            try:
+                dist.destroy_process_group()
+            except Exception:
+                pass  # the peers are gone; the group is dropped all the same
+        shutil.rmtree(self._tmp, ignore_errors=True)
+        if error is not None:
+            raise error
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        """close(); on the caller's error, the ranks are killed first, and
+        a rank's error, if one failed, is raised from the caller's."""
+        if exc_type is None:
+            self.close()
+            return False
+        self.kill()
+        try:
+            self.close()
+        except Exception as rank_error:
+            raise rank_error from exc
+        return False
+
+
+def _abort():
+    """Abort this process's NCCL collectives, where torch offers it (a
+    pending one raises); gloo's fail by themselves once the peers are
+    gone, and both end at the world's timeout."""
+    abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+    if (abort is not None and dist.is_initialized()
+            and dist.get_backend() == "nccl"):
+        try:
+            abort()
+        except Exception:
+            pass
+
+
+def start_world(task, n_spp: int, n_px: int, args=(), devices=None,
+                timeout: float | None = None,
+                threads: int | None = None) -> World:
+    """The world of run_world with this process as rank 0: ranks 1 ..
+    n-1 run task(mesh, *args) in spawned processes, and this process
+    joins as rank 0 and returns the handle.  The caller then runs rank
+    0's part of the same program on World.mesh (task(world.mesh, *args)
+    itself, or any steps whose collectives match the other ranks') and
+    calls close(), or uses the handle in a ``with`` block.  devices: one
+    a rank, rank 0's first (default cuda:0 .. cuda:n-1); timeout (s)
+    bounds each collective of every rank and close()'s join; threads caps
+    the spawned ranks' torch threads (this process keeps its own)."""
+    n = n_spp * n_px
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(n)]
+    threads = threads or max(1, (os.cpu_count() or 1) // n)
+    tmp = tempfile.mkdtemp(prefix="statmc-mesh-")
+    init = "file://" + os.path.join(tmp, "store")
+    import torch.multiprocessing as mp
+
+    procs = mp.start_processes(
+        _spawned_rank, nprocs=n - 1, join=False, daemon=True,
+        start_method="spawn",
+        args=(os.getpid(), n_spp, n_px, init, devices, task, tuple(args),
+              timeout, threads))
+    world = World(procs, tmp, timeout)
+    try:
+        world.mesh = shard.make_mesh(
+            n_spp, n_px, _connect(0, n, init, devices, timeout))
+    except BaseException:
+        world.__exit__(*sys.exc_info())
+        raise
+    world._watchdog.start()
+    return world
 
 
 def run_cli(args, n_spp: int, n_px: int) -> int:
@@ -199,6 +361,32 @@ def render_task(mesh, scene_path, out_path, iterations=None, base_seed=0,
         torch.save({"iterations": its, "launches": counts,
                     "denoise": {None: None, True: "slabs",
                                 False: "replicated"}[r._slabs]}, out_path)
+
+
+def jobs_task(mesh, scene_path, out_path, base_seeds):
+    """Render jobs back to back on one Renderer, a job a base seed: the
+    base seed set, then reset(), as a render service runs its jobs; rank
+    0 writes each job's last film, film-f and moment states over the
+    whole image."""
+    from ..driver import load
+
+    r = load(scene_path, base_seed=base_seeds[0], device=mesh.device,
+             mesh=mesh)
+    r.progress = False
+    jobs = []
+    for seed in base_seeds:
+        r.s.base_seed = seed
+        r.reset()
+        for i in range(1, r.s.ecfg.iterations + 1):
+            r.run_iteration(i)
+        jobs.append({
+            "film": _cpu(r.film_mean),
+            "film_f": (None if r.film_f is None
+                       else _cpu(r._full(r.film_f.reshape(-1, 3)))),
+            "states": {t: {k: _cpu(v) for k, v in st.items()}
+                       for t, st in r._full_states().items()}})
+    if mesh.rank == 0:
+        torch.save(jobs, out_path)
 
 
 def chunk_task(mesh, scene_path, out_path, n_samples):

@@ -7,9 +7,11 @@ divmod(k, n_px), as np.array(devices).reshape(n_spp, n_px) orders JAX's
 mesh.  Each rank holds its "px" slab of the film, the moment states and
 the ACRR/SMIS feedback, and the scene tables whole; samples stride over
 "spp".  Per chunk each rank streams its samples into fresh local states
-(serial Meng updates), then the "spp" members' states merge with Chan's
-pairwise combine (stats/moments.combine_across) and join the running
-states through one more combine; film sums add over "spp", the ray total
+(serial Meng updates; M3 set to its exact 0 after the first sample, see
+make_sharded_chunk_fn; with one spp rank, into the running states), then
+the "spp" members' states merge with Chan's pairwise combine
+(stats/moments.combine_across) and join the running states through one
+more combine; film sums add over "spp", the ray total
 and the STAT counters over both axes (path_len_max takes the maximum).
 The denoise filters row slabs with a halo exchange (make_sharded_filter;
 driver.Renderer._denoise).  Every draw is addressed by (pixel, sample)
@@ -57,28 +59,48 @@ class Mesh:
     comm_s: dict = field(default_factory=dict)  # seconds by collective
     comm_bytes: dict = field(default_factory=dict)  # bytes by collective
 
+    @property
+    def spp_ranks(self) -> list:
+        """Global ranks of this rank's "spp" group (its px column)."""
+        n_spp, n_px = self.shape["spp"], self.shape["px"]
+        return [s * n_px + self.px_index for s in range(n_spp)]
+
+    @property
+    def px_ranks(self) -> list:
+        """Global ranks of this rank's "px" group (its spp row)."""
+        n_px = self.shape["px"]
+        return [self.spp_index * n_px + p for p in range(n_px)]
+
     @contextlib.contextmanager
-    def timed(self, name: str):
-        """Adds the host seconds of the block, between two synchronizes
-        of the device, to comm_s[name], and the bytes that this rank
-        handed to its collectives (the counter mesh.bytes of comm.py) to
-        comm_bytes[name] and to the counter mesh.bytes.<name>; the block
-        runs in the span mesh.<name>."""
+    def timed(self, name: str, ranks):
+        """Adds the host seconds of the block and the device synchronize
+        after it to comm_s[name], and the bytes that this rank handed to
+        its collectives (the counter mesh.bytes of comm.py) to
+        comm_bytes[name] and to the counter mesh.bytes.<name>; both run
+        in the span mesh.<name>.  The synchronize before the block runs
+        in the span mesh.arrive.<name>, whose attribute `ranks` holds the
+        global ranks that take part in the block with this one: the span
+        ends when this rank arrives at the collective, and the latest end
+        among those ranks' spans less its own is its wait for slower
+        peers, inside mesh.<name> (read from every rank's spans
+        afterwards, so measuring the wait adds no collective)."""
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda *a: None))
-        sync(self.device)
+        with spans.span("mesh.arrive." + name, ranks=tuple(ranks)):
+            sync(self.device)
         t0 = time.perf_counter()
         b0 = spans.counted("mesh.bytes")
-        try:
-            with spans.span("mesh." + name):
+        with spans.span("mesh." + name):
+            try:
                 yield
-        finally:
-            sync(self.device)
-            self.comm_s[name] = (self.comm_s.get(name, 0.0)
-                                 + time.perf_counter() - t0)
-            nbytes = spans.counted("mesh.bytes") - b0
-            self.comm_bytes[name] = self.comm_bytes.get(name, 0) + nbytes
-            spans.count("mesh.bytes." + name, nbytes)
+            finally:
+                sync(self.device)
+                self.comm_s[name] = (self.comm_s.get(name, 0.0)
+                                     + time.perf_counter() - t0)
+                nbytes = spans.counted("mesh.bytes") - b0
+                self.comm_bytes[name] = (self.comm_bytes.get(name, 0)
+                                         + nbytes)
+                spans.count("mesh.bytes." + name, nbytes)
 
     def barrier(self):
         if self.backend == "nccl":
@@ -214,8 +236,11 @@ def make_sharded_chunk_fn(setup, mesh: Mesh):
         # Rank k takes samples sample_start + s n_spp + k: a remainder
         # gives the low spp indices one sample more.
         n_local = (n_samples - k + n_spp - 1) // n_spp
-        local = {t: {f: torch.zeros_like(v) for f, v in st.items()}
-                 for t, st in states.items()}
+        # With one spp rank there is nothing to merge: the samples stream
+        # into the running states, as on one device.
+        fresh = n_spp > 1
+        local = ({t: {f: torch.zeros_like(v) for f, v in st.items()}
+                  for t, st in states.items()} if fresh else states)
         local_film = torch.zeros_like(film_sum)
         local_w = torch.zeros_like(film_w)
         local_rays = torch.zeros((), device=dev)
@@ -230,18 +255,29 @@ def make_sharded_chunk_fn(setup, mesh: Mesh):
                     sample_start + s * n_spp + k, pixel_ids[start:end],
                     avg_ls[start:end], win_b[start:end], win_l[start:end],
                     feedback_on, valid=lane_valid[start:end])
-        with mesh.timed("spp_merge"):
-            for t, st in states.items():
-                merged = moments.combine_across(local[t], mesh.spp_group)
-                for f, v in moments.combine(st, merged).items():
-                    st[f].copy_(v)
-        with mesh.timed("film_sums"):
+            if fresh and s == 0:
+                # One sample's third central moment is 0.  The streamed
+                # update leaves the sample times the rounding residual of
+                # its square there (moments._meng_update's fma), ~|y|^3
+                # 2^-24, which fresh states would carry into the merge
+                # once a rank and chunk: on bright pixels of small spread,
+                # up to 4% of M3's scale.
+                for st in local.values():
+                    if "m3" in st:
+                        st["m3"].zero_()
+        if fresh:
+            with mesh.timed("spp_merge", mesh.spp_ranks):
+                for t, st in states.items():
+                    merged = moments.combine_across(local[t], mesh.spp_group)
+                    for f, v in moments.combine(st, merged).items():
+                        st[f].copy_(v)
+        with mesh.timed("film_sums", mesh.spp_ranks):
             sums = comm.all_reduce(torch.cat([local_film.reshape(-1),
                                               local_w]), "sum",
                                    mesh.spp_group)
             film_sum += sums[:local_film.numel()].reshape(film_sum.shape)
             film_w += sums[local_film.numel():]
-        with mesh.timed("counters"):
+        with mesh.timed("counters", range(n_spp * mesh.shape["px"])):
             keys = [k for k in local_stats if k != "path_len_max"]
             v = torch.stack([local_rays] + [local_stats[k] for k in keys])
             v = comm.all_reduce(v, "sum")

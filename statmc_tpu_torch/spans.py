@@ -33,8 +33,8 @@ Spans and counters of the port (PERF.md §3 names the metric of each):
 ``intersect.closest``, ``intersect.occluded`` and their counters
 ``.lanes`` and ``.live`` (render/intersect.py), with the ``twolevel.*``
 stages inside; ``denoise.gbuffers``, ``denoise.filter``
-(denoise/filter.py); ``mesh.<kind>`` and ``mesh.bytes.<kind>``
-(parallel/shard.py); the feature paths' ``textures.*``, ``lights.*``,
+(denoise/filter.py); ``mesh.<kind>``, ``mesh.arrive.<kind>`` and
+``mesh.bytes.<kind>`` (parallel/shard.py); the feature paths' ``textures.*``, ``lights.*``,
 ``hair.*``, ``sss.*``, ``volume.*``, ``fourier.*`` and ``bdpt.*``.
 """
 from __future__ import annotations

@@ -5,17 +5,23 @@ filter with zeros in `valid` and the row-sharded filter with its halo
 exchange against the JAX package's (tests/test_sharded_filter.py's
 inputs, rtol 1e-5 / atol 1e-6) and against the port's unsharded filter,
 and the sharded render chunk on a 2x2 mesh against the one-device render
-at tests/test_sharding.py's tolerances.
+at tests/test_sharding.py's tolerances.  The launcher's world with the
+calling process as rank 0 (launch.start_world) against run_world's, a
+rank that fails ending such a world within its timeout, and render jobs
+run back to back with reset() against separate loads.
 
 Each world is a set of spawned processes (parallel/launch.py, one thread
 a rank) that meet through a file store under tmp_path and write rank 0's
 results there for the test to read back; its worker lives in the port,
 so no rank imports JAX.
 """
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import statmc_tpu.driver as JD
 from statmc_tpu.denoise.filter_jax import stat_filter as j_stat_filter
@@ -205,8 +211,9 @@ def test_spp_merge_differs_from_one_device_in_m3_only(tmp_path):
     """Why a mesh's denoise can miss the one-device render: after one
     iteration of 2 samples split over 2 "spp" ranks, every moment field
     equals the one-device per-sample render's bit for bit except the
-    Radiance m3, which is 0 but for rounding and which Chan's merge rounds
-    otherwise than the serial update.  With the mesh's m3 in its states,
+    Radiance m3, which is 0 in exact arithmetic: the mesh's merge of two
+    one-sample states gives 0, the serial update the rounding left by its
+    first sample.  With the mesh's m3 in its states,
     the one-device denoise gives the mesh's film-f and ACRR feedback bit
     for bit (at this size, r = 4, the m3 alone moves the feedback on some
     pixels: the skew correction's acceptance decisions)."""
@@ -236,3 +243,85 @@ def test_spp_merge_differs_from_one_device_in_m3_only(tmp_path):
     r._denoise()
     assert torch.equal(r.film_f.reshape(-1, 3), got["film_f"])
     assert torch.equal(r.avg_ls, got["avg_ls"])
+
+
+def _denoised_scene(tmp_path):
+    """A 16x12 staircase job of 2 iterations with a denoise of radius 2:
+    on a 2x2 mesh, two row slabs of 6 rows."""
+    from statmc_tpu_torch.testscenes import scene_text, staircase_proxy
+
+    path = tmp_path / "d.pbrt"
+    path.write_text(scene_text(
+        width=16, height=12, spp=2, iterations=2, maxdepth=3, denoise=True,
+        filterradius=2, body=staircase_proxy(n_steps=4, clutter=4)))
+    return str(path)
+
+
+def test_start_world_matches_run_world(tmp_path):
+    """start_world, with this process as rank 0 running render_task
+    itself, writes the same whole-image film, film-f, feedback and n as
+    run_world's render, bit for bit."""
+    path = _denoised_scene(tmp_path)
+    _world(launch.render_task, 2, 2, path, str(tmp_path / "a.pt"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as run_world's ranks
+    try:
+        with launch.start_world(
+                launch.render_task, 2, 2, (path, str(tmp_path / "b.pt")),
+                devices=["cpu"] * 4, timeout=WORLD_TIMEOUT,
+                threads=1) as world:
+            assert (world.mesh.rank, world.mesh.spp_index,
+                    world.mesh.px_index) == (0, 0, 0)
+            launch.render_task(world.mesh, path, str(tmp_path / "b.pt"))
+    finally:
+        torch.set_num_threads(threads)
+    assert not dist.is_initialized()
+    a = torch.load(tmp_path / "a.pt", weights_only=False)
+    b = torch.load(tmp_path / "b.pt", weights_only=False)
+    assert a["denoise"] == b["denoise"] == "slabs"
+    for ia, ib in zip(a["iterations"], b["iterations"], strict=True):
+        for k in ("film", "film_f", "avg_ls", "n"):
+            assert torch.equal(ia[k], ib[k]), k
+
+
+def test_failing_rank_ends_the_world(tmp_path):
+    """A spawned rank that raises (combine_task given one state for two
+    "spp" ranks: the ranks at spp 1 raise) while rank 0, this process,
+    waits in the merge: the world ends with an error well within its
+    timeout, with no rank left alive and this process out of the
+    world."""
+    rng = np.random.default_rng(7)
+    torch.save([{k: torch.as_tensor(v) for k, v in
+                 _state(rng, (2, 8), True).items()}], tmp_path / "in.pt")
+    args = (str(tmp_path / "in.pt"), str(tmp_path / "out.pt"))
+    t0 = time.monotonic()
+    world = None
+    with pytest.raises(Exception):
+        with launch.start_world(launch.combine_task, 2, 2, args,
+                                devices=["cpu"] * 4, timeout=WORLD_TIMEOUT,
+                                threads=1) as world:
+            launch.combine_task(world.mesh, *args)
+    assert time.monotonic() - t0 < WORLD_TIMEOUT / 2
+    assert world is not None
+    assert not any(p.is_alive() for p in world._procs.processes)
+    assert not dist.is_initialized()
+    assert not (tmp_path / "out.pt").exists()
+
+
+def test_jobs_after_reset_match_separate_loads(tmp_path):
+    """Two render jobs back to back on one mesh Renderer (base seed 3,
+    then 5 after reset(): fresh slab states, the same base key on every
+    rank, the same groups) against a separate load with base seed 5: the
+    second job's film, film-f and every moment state bit for bit."""
+    path = _denoised_scene(tmp_path)
+    _world(launch.jobs_task, 2, 2, path, str(tmp_path / "jobs.pt"), [3, 5])
+    _world(launch.render_task, 2, 2, path, str(tmp_path / "one.pt"), None,
+           5, True)
+    jobs = torch.load(tmp_path / "jobs.pt", weights_only=False)
+    one = torch.load(tmp_path / "one.pt", weights_only=False)["iterations"]
+    assert not torch.equal(jobs[0]["film"], jobs[1]["film"])
+    assert torch.equal(jobs[1]["film"], one[-1]["film"])
+    assert torch.equal(jobs[1]["film_f"], one[-1]["film_f"])
+    for t, st in one[-1]["states"].items():
+        for k, v in st.items():
+            assert torch.equal(jobs[1]["states"][t][k], v), (t, k)
