@@ -8,7 +8,8 @@ output lines.  --device picks the card (the default) or the CPU, which
 runs every kernel's plain PyTorch version; --profile DIR writes a
 torch.profiler chrome trace of the render loop into DIR.  On the card, the
 last line on standard error gives the launches of each kernel over the
-render (or denoise) loop, as JSON: ``Kernel launches: {"B1": n, ...}``.
+render (or denoise) loop, as JSON: ``Kernel launches: {"B1": n, ...}``,
+with the bounce step's graph counters (``"graph.bounce.replay": n``, ...).
 
 --mesh SPPxPX renders on a mesh of SPP*PX ranks (parallel/shard.py):
 samples strided over SPP ranks, image rows over PX.  The command starts
@@ -152,15 +153,29 @@ def run(args, r, mesh=None) -> int:
     return 0
 
 
+GRAPH_COUNTERS = ("graph.bounce.capture", "graph.bounce.replay",
+                  "graph.bounce.eager")
+
+
 def launches(reset=False):
     """Each kernel's launch count ({"B1": n, ...}, the counters kernel.B1
-    .. kernel.B4 and kernel.R1 of spans.py), set to 0 if asked."""
+    .. kernel.B4 and kernel.R1 of spans.py), set to 0 if asked, as are
+    the bounce step's graph counters (graph_counts)."""
     from . import spans
 
     if reset:
         spans.reset("kernel.")
+        spans.reset("graph.")
     return {k: spans.counted("kernel." + k)
             for k in ("B1", "B2", "B3", "B4", "R1")}
+
+
+def graph_counts() -> dict:
+    """The bounce step's graph counters: segments captured, steps
+    replayed and steps run op by op on the card."""
+    from . import spans
+
+    return {k: spans.counted(k) for k in GRAPH_COUNTERS}
 
 
 def _report_launches(r, mesh=None):
@@ -175,7 +190,8 @@ def _report_launches(r, mesh=None):
         if by_rank is not None:
             print(f"Kernel launches by rank: {json.dumps(by_rank)}",
                   file=sys.stderr, flush=True)
-        print(f"Kernel launches: {json.dumps(launches())}", file=sys.stderr,
+        counts = {**launches(), **graph_counts()}
+        print(f"Kernel launches: {json.dumps(counts)}", file=sys.stderr,
               flush=True)
 
 

@@ -13,6 +13,20 @@ import torch
 # Large-but-finite ray bound (inf*0 = nan breaks the t-interval math).
 INF = 1e30
 
+_CONSTS: dict = {}  # (values, dtype, device) -> tensor
+
+
+def const(values: tuple, device, dtype=torch.float32):
+    """The tensor of `values` (a tuple) on `device`, made once and shared
+    by every later call: the bounce step's CUDA graphs
+    (render/bounce_graphs.py) cannot copy host data to the card while
+    they record.  Callers must not write into it."""
+    key = (values, dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
 
 def sqrt(x):
     """Correctly rounded float32 square root.  PyTorch's vectorized CPU

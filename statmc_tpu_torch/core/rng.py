@@ -428,7 +428,8 @@ def _halton(words, n, bounce, slot: int, k: int, cap: int):
     dev = words.device
     dim = 2 * (torch.as_tensor(bounce, device=dev).to(torch.int64) * N_SLOTS
                + slot) + k
-    base = _primes_table(dev)[torch.clamp(dim, max=cap)]
+    # take, not [], so that a 0-d index is not read back to the host.
+    base = torch.take(_primes_table(dev), torch.clamp(dim, max=cap))
     h = radical_inverse(base, torch.as_tensor(n, device=dev))
     return torch.remainder(h + _unit(words[:, k]), 1.0)
 

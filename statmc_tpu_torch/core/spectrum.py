@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import torch
 
+from . import math as cm
+
 _Y_WEIGHT = (0.212671, 0.715160, 0.072169)
 
 
 def luminance(rgb):
     """RGBSpectrum::y() (spectrum.h:RGBSpectrum::y)."""
-    w = torch.tensor(_Y_WEIGHT, dtype=rgb.dtype, device=rgb.device)
+    w = cm.const(_Y_WEIGHT, rgb.device, rgb.dtype)
     return torch.sum(rgb * w, dim=-1)
 
 

@@ -563,7 +563,7 @@ def sample(m: MaterialLanes, wo, u2, uc, present=None) -> BSDFSample:
 
     # Candidate A: cosine hemisphere (diffuse lobes).
     wi_cos = cosine_sample_hemisphere(u2)
-    flip_z = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
+    flip_z = cm.const((1.0, 1.0, -1.0), wo.device)
     wi = torch.where(wo[..., 2:3] < 0, wi_cos * flip_z, wi_cos)
 
     hair_model = m.hair_h is not None and _has(present, sb.MAT_HAIR)

@@ -28,6 +28,7 @@ from ..core import math as cm
 from ..core import rng as crng
 from ..core import spectrum as spec
 from ..scene import build as sb
+from . import bounce_graphs as BG
 from . import bsdf as B
 from . import lights as LT
 from .albedo_lut import albedo_from_curves
@@ -114,7 +115,51 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     (random), (scramble keys, sample index) for the LD modes, (table
     rows, sample index) for MODE_LOCKSTEP, or (the tiles' raw streams
     [T, L], each lane's tile [P]) for MODE_LOCKSTEP_EXACT, whose cursor
-    is carry["cursor"]."""
+    is carry["cursor"].
+
+    The step's own tensor code is `_step_ops`, cut at its three scene
+    queries: the closest hit, the shadow ray and the BSDF-MIS ray, which
+    run here, eagerly, through this module's `intersect_scene` and
+    `occluded_scene`.  On the card, where render/bounce_graphs.py's
+    eager_reason finds nothing against it, the four stretches between
+    the queries replay as CUDA graphs; else they run op by op.  Either
+    way each lane's results are the same, bit for bit."""
+    def query(req):
+        kind, o, d, t_max, kw = req
+        if kind == "occluded":
+            return occluded_scene(scene, o, d, t_max, bvh)
+        return intersect_scene(scene, o, d, t_max, bvh, **kw)
+
+    dev = carry["o"].device
+    if BG.eager_reason(scene, cfg, ld_stream, dev) is None:
+        def body(x):
+            return _step_ops(scene, bvh, dist, cfg, x["carry"], x["step"],
+                             x["keys"], x["avg_ls"], x["win_bsdf"],
+                             x["win_light"], feedback_on, albedo_luts,
+                             x["ld"])
+
+        # Only configurations that read feedback_on capture it.
+        fb = feedback_on if cfg.enable_smis or cfg.enable_acrr else None
+        return BG.replay_step(
+            body, dict(carry=carry, step=step, keys=keys, avg_ls=avg_ls,
+                       win_bsdf=win_bsdf, win_light=win_light,
+                       ld=ld_stream),
+            (cfg, fb), (scene, dist, albedo_luts), query)
+    if dev.type == "cuda":
+        spans.count("graph.bounce.eager", 1)
+    return BG.drive(_step_ops(scene, bvh, dist, cfg, carry, step, keys,
+                              avg_ls, win_bsdf, win_light, feedback_on,
+                              albedo_luts, ld_stream), query)
+
+
+def _step_ops(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
+              avg_ls, win_bsdf, win_light, feedback_on: bool, albedo_luts,
+              ld_stream):
+    """The bounce step's own tensor code, as a generator: it yields each
+    scene query as (kind, o, d, t_max, keyword arguments), kind
+    "intersect" or "occluded", takes the answer back through send(), and
+    returns the new carry.  bvh is read by the SSS block alone, whose
+    probe chain runs its own queries (an eager step)."""
     P = carry["o"].shape[0]
     dev = carry["o"].device
     NL = cfg.n_ls
@@ -148,8 +193,8 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     # The exact replay needs pbrt's BSDF frame (ss = normalize(dpdu)) at
     # every vertex, so cosine-sampled directions match draw for draw; hair
     # scenes need it for the Marschner frame (None: hair scenes only).
-    hit = intersect_scene(scene, o, d, tmax_live, bvh,
-                          want_tangent=True if exact else None)
+    hit = yield ("intersect", o, d, tmax_live,
+                 {"want_tangent": True if exact else None})
     found = hit.found & active
 
     # --- emitted light at the vertex (bounce 0 or after specular) ---
@@ -180,7 +225,7 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     shading = shading & ~null_mat
 
     ns_safe = torch.where(torch.any(hit.ns != 0, -1, keepdim=True), hit.ns,
-                          torch.tensor([0.0, 0.0, 1.0], device=dev))
+                          cm.const((0.0, 0.0, 1.0), dev))
     frame = B.ShadingFrame.from_normal(ns_safe)
     if hit.tangent is not None:
         # pbrt's BSDF frame takes dpdu as its x axis (ss): the Marschner
@@ -227,10 +272,9 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     lvalid = (nee & (lsamp.pdf > 0) & torch.any(lsamp.li > 0, -1)
               & torch.any(f_l > 0, -1))
     sh_o = _offset_origin(hit.p, hit.ng, lsamp.wi)
-    occ = occluded_scene(
-        scene, sh_o, lsamp.wi,
-        torch.where(lvalid, torch.clamp(lsamp.dist * 0.999, min=0.0), 0.0),
-        bvh)
+    occ = yield ("occluded", sh_o, lsamp.wi,
+                 torch.where(lvalid, torch.clamp(lsamp.dist * 0.999, min=0.0),
+                             0.0), {})
     li_l = torch.where((lvalid & ~occ)[..., None], lsamp.li, 0.0)
     contributed_l = torch.any(li_l > 0, -1) & lvalid
     w_l = power_heuristic(1.0, lsamp.pdf, 1.0, pdf_l_scatter)
@@ -247,8 +291,8 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     wi2 = frame.to_world(bsmp.wi)
     f_b = bsmp.f * cm.absdot(wi2, hit.ns)[..., None]
     bs_o = _offset_origin(hit.p, hit.ng, wi2)
-    hit2 = intersect_scene(scene, bs_o, wi2, torch.where(nee, cm.INF, 0.0),
-                           bvh, lean=True)
+    hit2 = yield ("intersect", bs_o, wi2, torch.where(nee, cm.INF, 0.0),
+                  {"lean": True})
     same_light = hit2.found & (hit2.light_id == light_id)
     li_b_hit = LT.area_light_le(scene, hit2.light_id, hit2.ng, -wi2)
     is_inf_light = scene.light_kind[light_id.long()] == sb.LIGHT_INFINITE
@@ -268,7 +312,8 @@ def _bounce_step(scene, bvh, dist, cfg: IntegratorConfig, carry, step, keys,
     # --- SMIS strategy disabling (statpath.cpp:559-560,630-728) -----
     smis_here = cfg.enable_smis & (bl < cfg.nb_mis)
     bidx = torch.clamp(bl, max=NB - 1).long()
-    bhot = torch.nn.functional.one_hot(bidx, NB).to(torch.float32)
+    # one_hot's range check would read the lanes back to the host.
+    bhot = (bidx[:, None] == torch.arange(NB, device=dev)).to(torch.float32)
 
     def at_b(arr):  # [P, NB] -> [P] value at this lane's bounce
         return torch.gather(arr, 1, bidx[:, None])[:, 0]

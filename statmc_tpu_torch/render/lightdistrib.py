@@ -14,6 +14,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..core import math as cm
 from ..scene import build as sb
 
 SPATIAL_MAX_VOXELS = 16
@@ -172,9 +173,8 @@ def sample_light_id(dist: LightDistribution, u, p=None):
         idx = torch.clamp(idx, max=cdf.shape[0] - 1)
         return idx.to(torch.int32), dist.pmf[0][idx]
     nx, ny, nz = dist.grid_res
-    res = torch.tensor([nx, ny, nz], dtype=torch.float32, device=p.device)
-    cap = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
-                       device=p.device)
+    res = cm.const((float(nx), float(ny), float(nz)), p.device)
+    cap = cm.const((nx - 1, ny - 1, nz - 1), p.device, torch.int32)
     g = ((p - dist.world_lo) * dist.world_inv_extent * res).to(torch.int32)
     g = torch.minimum(torch.clamp(g, min=0), cap).long()
     v = (g[..., 0] * ny + g[..., 1]) * nz + g[..., 2]

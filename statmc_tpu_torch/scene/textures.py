@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import spans
+from ..core import math as cm
 
 TEX_NONE = -1
 MAX_MIP = 12  # mip chain cap (4096x4096 fully reduced)
@@ -262,6 +263,7 @@ _MASK = 0xFFFFFFFF
 # (w000, w100, w010, w110, w001, w101, w011, w111).
 _CORNERS = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0],
                      [0, 0, 1], [1, 0, 1], [0, 1, 1], [1, 1, 1]], np.int64)
+_CORNERS_T = tuple(map(tuple, _CORNERS.T.tolist()))  # for core/math.py:const
 
 
 def _mul32(x, c: int):
@@ -306,7 +308,7 @@ def noise3(px, py, pz):
     ix, iy, iz = torch.floor(px), torch.floor(py), torch.floor(pz)
     d = torch.stack([px - ix, py - iy, pz - iz])  # [3, ...]
     i = torch.stack([ix, iy, iz]).long()
-    off = torch.as_tensor(_CORNERS.T, device=px.device).reshape(
+    off = cm.const(_CORNERS_T, px.device, torch.int64).reshape(
         (3, 8) + (1,) * px.dim())
     ci = i[:, None] + off  # [3, 8, ...]
     cd = d[:, None] - off.to(d.dtype)
@@ -335,7 +337,7 @@ def _octave_points(p, n: int):
     for _ in range(n):
         lams.append(lam)
         lam = lam * 1.99
-    scale = torch.tensor(lams, dtype=p.dtype, device=p.device)
+    scale = cm.const(tuple(lams), p.device, p.dtype)
     return p[None] * scale.reshape((n,) + (1,) * p.dim())
 
 
@@ -374,6 +376,7 @@ _MARBLE_C = np.array([
     [.5, .5, .5], [.6, .59, .58], [.58, .58, .6],
     [.58, .58, .6], [.2, .2, .33], [.58, .58, .6],
 ], np.float32)
+_MARBLE_C_ROWS = tuple(map(tuple, _MARBLE_C.tolist()))
 
 
 def _marble_color(marble):
@@ -382,7 +385,7 @@ def _marble_color(marble):
     nseg = _MARBLE_C.shape[0] - 3
     first = torch.clamp(torch.floor(t * nseg).to(torch.int64), 0, nseg - 1)
     tt = t * nseg - first.to(t.dtype)
-    c = torch.as_tensor(_MARBLE_C, device=t.device)
+    c = cm.const(_MARBLE_C_ROWS, t.device)
     c0, c1, c2, c3 = (c[first + k] for k in range(4))
     # Bezier via de Casteljau (marble.cpp:60-67), scaled by 1.5.
     tt = tt[..., None]
@@ -458,6 +461,7 @@ _EWA_TS = ((np.arange(EWA_TAPS, dtype=np.float32) + np.float32(0.5))
            / np.float32(EWA_TAPS) * np.float32(2.0) - np.float32(1.0))
 _EWA_WTS = np.exp(np.float32(-2.0) * _EWA_TS * _EWA_TS)
 _EWA_WTS = _EWA_WTS / _EWA_WTS.sum(dtype=np.float32)
+_EWA_TS_VALUES = tuple(_EWA_TS.tolist())
 
 
 def has_image_textures(table: TextureTable) -> bool:
@@ -498,7 +502,7 @@ def _ewa_lookup(table: TextureTable, tid, uvs, duv_major, duv_minor):
     min2 = torch.where(swap, maj, mino)
     dmaj = torch.where(swap[..., None], duv_minor, duv_major)
     min2 = torch.maximum(min2, maj2 / EWA_MAX_ANISO)
-    ts = torch.as_tensor(_EWA_TS, device=uvs.device).reshape(
+    ts = cm.const(_EWA_TS_VALUES, uvs.device).reshape(
         (EWA_TAPS,) + (1,) * uvs.dim())
     vals = _trilinear(table, tid, uvs[None] + dmaj[None] * ts, min2)
     out = 0.0

@@ -32,8 +32,11 @@ Spans and counters of the port (PERF.md §3 names the metric of each):
 ``rng.draw`` (core/rng.py); ``moments.update`` (stats/estimator.py);
 ``intersect.closest``, ``intersect.occluded`` and their counters
 ``.lanes`` and ``.live`` (render/intersect.py), with the ``twolevel.*``
-stages inside; ``denoise.gbuffers``, ``denoise.filter``
-(denoise/filter.py); ``mesh.<kind>``, ``mesh.arrive.<kind>`` and
+stages inside; the host counters ``graph.bounce.capture``,
+``graph.bounce.replay`` and ``graph.bounce.eager``
+(render/bounce_graphs.py: a replayed step records no span inside its
+graphs, its draws' ``rng.draw`` included); ``denoise.gbuffers``,
+``denoise.filter`` (denoise/filter.py); ``mesh.<kind>``, ``mesh.arrive.<kind>`` and
 ``mesh.bytes.<kind>`` (parallel/shard.py); the feature paths' ``textures.*``, ``lights.*``,
 ``hair.*``, ``sss.*``, ``volume.*``, ``fourier.*`` and ``bdpt.*``.
 """

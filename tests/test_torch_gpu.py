@@ -6,8 +6,11 @@ environment map's sampling search at 2^20 lanes on the card against the
 CPU, a volpath render on the card against the CPU and B1 on its walks'
 closest-hit calls, BDPT and MLT on the card against the CPU (BDPT's
 splats bit for bit in two runs), the exact lockstep replay of
-tiny.pbrt on the card against the C++ reference's PFMs, and the
-albedo-LUT precompute and bsdftest on the card against the CPU.
+tiny.pbrt on the card against the C++ reference's PFMs, the
+albedo-LUT precompute and bsdftest on the card against the CPU, kernel
+R1 against its plain version, and the bounce step replayed from CUDA
+graphs (render/bounce_graphs.py) against the eager step, bit for bit,
+with its three scene queries and its counters.
 
 The CUDA kernels have no CPU mode, so these tests carry the `gpu` marker
 and skip without an NVIDIA GPU.  The file imports torch and the port
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from statmc_tpu_torch import spans
+from statmc_tpu_torch.__main__ import GRAPH_COUNTERS
 from statmc_tpu_torch.accel import fused as TF
 from statmc_tpu_torch.accel import twolevel as TT
 from statmc_tpu_torch.denoise import filter as TFL
@@ -1094,40 +1098,167 @@ def test_r1_broadcast_operands_match_plain(cuda):
 @pytest.mark.gpu
 def test_r1_launches_are_the_draws_and_pixel_keys(cuda, tmp_path,
                                                   monkeypatch):
-    """A random-mode render on the card: kernel.R1 counts one launch for
-    each rng.draw and each pixel_keys call, and the render matches the
-    CPU's sample counts and ray total."""
+    """A random-mode render on the card: kernel.R1 counts every launch,
+    one for each site_hash call (each draw site and pixel_keys call) the
+    same render makes on the CPU, plus the draws of the one step each
+    graph key runs op by op before it captures (render/bounce_graphs.py);
+    every bounce step replays, and the render matches the CPU's sample
+    counts and ray total."""
     from statmc_tpu_torch.core import rng as crng
     from statmc_tpu_torch.driver import load
+    from statmc_tpu_torch.render import bounce_graphs as BG
 
     path = _small_staircase(tmp_path, "random")
-    keys_calls = [0]
-    pixel_keys = crng.pixel_keys
+    calls = [0]
+    site_hash = crng.site_hash
 
     def counted(*a, **k):
-        keys_calls[0] += 1
-        return pixel_keys(*a, **k)
+        calls[0] += 1
+        return site_hash(*a, **k)
 
     runs = {}
     for dev in ("cpu", "cuda"):
         r = load(path, device=dev)
         r.progress = False
         if dev == "cuda":
-            monkeypatch.setattr(crng, "pixel_keys", counted)
+            cpu_calls = calls[0]
+            BG.clear()
             spans.disable()
             spans.reset()
             spans.enable()
+        else:
+            monkeypatch.setattr(crng, "site_hash", counted)
         try:
             runs[dev] = (r.render(verbose=False)[-1]["rays_total"],
                          r.buffers())
             snap = spans.snapshot()
         finally:
+            monkeypatch.undo()
             spans.disable()
             spans.reset()
+    c = snap["counters"]
+    steps = sum(s["name"] == "integrator.bounce_step" for s in snap["spans"])
     draws = sum(s["name"] == "rng.draw" for s in snap["spans"])
-    assert draws > 0 and keys_calls[0] > 0
-    assert snap["counters"]["kernel.R1"] == draws + keys_calls[0]
+    twins = sum(sum(g.r1) for g in BG._CACHE.values())
+    assert cpu_calls > 0 and draws > 0 and twins > 0 and steps > 0
+    assert c["kernel.R1"] == cpu_calls + twins
+    assert c["graph.bounce.replay"] == steps
+    assert c["graph.bounce.capture"] == 4 * len(BG._CACHE)
+    assert c.get("graph.bounce.eager", 0) == 0
     assert runs["cuda"][0] == runs["cpu"][0]
     for k, v in runs["cpu"][1].items():
         if k.endswith("-n"):
             np.testing.assert_array_equal(runs["cuda"][1][k], v)
+
+
+def _bounce_run(s, cfg, driver, feedback_on):
+    """Two samples a lane of the small scene `s` through trace_wavefront
+    (a [P] step; every record_fn call's outputs) or through trace (an int
+    step; each sample's outputs)."""
+    import test_torch_bounce_graphs as TB
+
+    from statmc_tpu_torch.core import rng as crng
+    from statmc_tpu_torch.render import camera as CAM
+    from statmc_tpu_torch.render import integrator as INT
+
+    if driver == "trace":
+        outs = []
+        for sample in (0, 1):
+            carry, keys, avg, wb, wl, ld = TB.step_inputs(s, cfg, sample)
+            outs.append(tuple(INT.trace(
+                s.scene, s.bvh, s.dist, cfg, carry["o"], carry["d"], keys,
+                avg, wb, wl, feedback_on, albedo_luts=s.albedo_luts,
+                ld_stream=ld)))
+        return tuple(outs)
+    P, dev = s.width * s.height, s.device
+    _, _, avg, wb, wl, _ = TB.step_inputs(s, cfg)
+    ids = torch.arange(P, dtype=torch.int32, device=dev)
+    pxy = torch.stack([(ids % s.width).to(torch.float32),
+                       (ids // s.width).to(torch.float32)], -1)
+    recs = []
+
+    def record(out, done):
+        recs.append((tuple(t.clone() for t in out), done.clone()))
+
+    INT.trace_wavefront(s.scene, s.bvh, s.dist, cfg,
+                        lambda u: CAM.generate_rays(s.cam, pxy + u), ids,
+                        crng.base_key(7, dev), 0, 2, avg, wb, wl,
+                        feedback_on, record, albedo_luts=s.albedo_luts)
+    return tuple(recs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feedback_on", [False, True])
+@pytest.mark.parametrize("driver", ["wavefront", "trace"])
+@pytest.mark.parametrize("scene", ["staircase", "terrain"])
+def test_bounce_graphs_match_eager_step(cuda, scene, driver, feedback_on,
+                                        tmp_path, monkeypatch):
+    """The bounce step replayed from CUDA graphs against the eager step
+    on the card, bit for bit, on the small staircase (B1) and terrain (B3
+    + B4): two samples through trace_wavefront and through trace, with
+    ACRR and SMIS configured and feedback off and on.  Counters: the
+    four segments captured once, every step replayed, none eager (and
+    every step eager where the rule is made to refuse)."""
+    import test_torch_bounce_graphs as TB
+
+    from statmc_tpu_torch.render import bounce_graphs as BG
+
+    s = TB.setup(tmp_path, scene, device="cuda")
+    cfg = TB.feedback_config(s.icfg)
+    runs = {}
+    for mode in ("graph", "eager"):
+        BG.clear()
+        spans.reset("graph.")
+        if mode == "eager":
+            monkeypatch.setattr(BG, "eager_reason", lambda *a: "compared")
+        out = _bounce_run(s, cfg, driver, feedback_on)
+        runs[mode] = (out, [spans.counted(k) for k in GRAPH_COUNTERS])
+    assert TB.same(runs["graph"][0], runs["eager"][0])
+    steps = runs["eager"][1][2]
+    assert steps > 0 and runs["eager"][1] == [0, 0, steps]
+    assert runs["graph"][1] == [4, steps, 0]
+
+
+@pytest.mark.gpu
+def test_bounce_graphs_make_every_query(cuda, tmp_path, monkeypatch):
+    """With wrappers over integrator.intersect_scene and occluded_scene,
+    as the benchmark's check installs them, the replayed step makes its
+    three queries a step through them (two-level terrain, trace), with
+    the same arguments and answers as the eager step."""
+    import test_torch_bounce_graphs as TB
+
+    from statmc_tpu_torch.render import bounce_graphs as BG
+    from statmc_tpu_torch.render import integrator as INT
+
+    s = TB.setup(tmp_path, "terrain", device="cuda")
+    cfg = s.icfg
+    isect, occl = INT.intersect_scene, INT.occluded_scene
+    logs = {}
+    for mode in ("graph", "eager"):
+        kinds, seen = [], []
+
+        def intersect_scene(scene, o, d, t_max, bvh, *a, **kw):
+            hit = isect(scene, o, d, t_max, bvh, *a, **kw)
+            kinds.append("lean" if kw.get("lean") else "closest")
+            seen.append((o.clone(), d.clone(), t_max.clone(),
+                         tuple(x.clone() for x in hit if x is not None)))
+            return hit
+
+        def occluded_scene(scene, o, d, t_max, bvh, *a, **kw):
+            blocked = occl(scene, o, d, t_max, bvh, *a, **kw)
+            kinds.append("occluded")
+            seen.append((o.clone(), d.clone(), t_max.clone(),
+                         (blocked.clone(),)))
+            return blocked
+
+        monkeypatch.setattr(INT, "intersect_scene", intersect_scene)
+        monkeypatch.setattr(INT, "occluded_scene", occluded_scene)
+        if mode == "eager":
+            monkeypatch.setattr(BG, "eager_reason", lambda *a: "compared")
+        BG.clear()
+        _bounce_run(s, cfg, "trace", False)
+        logs[mode] = (kinds, tuple(seen))
+    steps = 2 * (cfg.max_depth + 1 + cfg.null_extra)
+    assert logs["graph"][0] == ["closest", "occluded", "lean"] * steps
+    assert logs["eager"][0] == logs["graph"][0]
+    assert TB.same(logs["graph"][1], logs["eager"][1])
